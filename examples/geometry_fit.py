@@ -1,4 +1,4 @@
-"""Chip-speed GEOMETRY fitting: recover a sphere's pose through the
+"""Kernel-speed GEOMETRY fitting: recover a sphere's pose through the
 geometry-adjoint megakernel (ops/megakernel_geom.py).
 
 A target Cornell-spheres image is rendered once; sphere 0 is then
@@ -6,13 +6,12 @@ displaced and its center recovered by normalized-step descent on
 pathwise interior gradients + the edge-sampled silhouette boundary term
 (grad/edge.py), all through ONE adjoint kernel launch per step — no
 recompiles (geometry rides the runtime sphere table) and no
-finite-difference probes (grad/fd.py pays 2P+1 renders per step; the
-adjoint is 8x faster at P=8 and 129x at P=1024 — PERF.md round 4).
+finite-difference probes (grad/fd.py pays 2P+1 renders per step).
 
 Runs anywhere:
 
-    JAX_PLATFORMS=cpu python examples/geometry_fit.py        # interpret
-    python examples/geometry_fit.py                          # on a TPU
+    JAX_PLATFORMS=cpu python examples/geometry_fit.py        # interpreter
+    python examples/geometry_fit.py                          # on a GPU
 
 Expected (12 steps): loss drops monotonically in its best iterate and
 the recovered center moves most of the displaced distance back (the
@@ -43,17 +42,17 @@ from small_pathtracer_tpu.ops.megakernel_geom import (
 
 
 def main() -> int:
-    on_tpu = jax.devices()[0].platform == "tpu"
+    on_gpu = jax.devices()[0].platform == "gpu"
     scene = spt.get_scene("cornell_spheres")
     cam = spt.make_camera(aspect=4 / 3)
-    size = (128, 96, 16) if on_tpu else (32, 24, 4)
+    size = (128, 96, 16) if on_gpu else (32, 24, 4)
     cfg = spt.RenderConfig(
         width=size[0], height=size[1], spp=size[2], estimator="nee",
         max_bounces=8, sphere_table="on", seed=13,
     )
 
     print(f"target render {cfg.width}x{cfg.height}x{cfg.spp}spp "
-          f"({'tpu' if on_tpu else 'cpu interpret'})...")
+          f"({'gpu' if on_gpu else 'cpu interpreter'})...")
     img_sum, _, _, _ = geom_run(scene, cam, cfg, cfg.seed)
     target = np.asarray(img_sum) / cfg.spp
 

@@ -1,14 +1,14 @@
-"""Chip-speed inverse rendering via the forward + adjoint Pallas
+"""Kernel-speed inverse rendering via the forward + adjoint Pallas
 megakernels (ops/megakernel_grad.py).
 
 Unlike examples/inverse_rendering.py (jnp lax.scan adjoint), both the
-render and its material gradients run as fused TPU kernels with RUNTIME
+render and its material gradients run as fused GPU kernels with RUNTIME
 material tables, so the whole optimization compiles once and each step costs
-about three forward renders (~23x faster than the jnp step on a v5e at
-equal config — PERF.md "Round 2").
+about three forward renders (PERF.md has the time per step against
+jax.grad of the jnp renderer).
 
-    python examples/kernel_fit.py          # TPU; add JAX_PLATFORMS=cpu for
-                                           # the (slow) interpret fallback
+    python examples/kernel_fit.py          # GPU; JAX_PLATFORMS=cpu runs the
+                                           # kernels in the (slow) interpreter
 """
 
 from __future__ import annotations

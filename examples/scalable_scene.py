@@ -1,15 +1,15 @@
-"""Scalable scenes + chip-speed geometry fitting, end to end.
+"""Scalable scenes + kernel-speed geometry fitting, end to end.
 
 1. Render a 263-object scene (walls + light + 256 spheres, some mirrors)
-   through the megakernel's packed SMEM sphere table: compiled code size
+   through the megakernel's packed runtime sphere table: compiled code size
    is O(unrolled objects) — the same executable serves ANY sphere
    positions/radii/materials, so step 2's probes never recompile.
 2. Move one sphere, then recover its center/radius by common-random-number
    central differences through the same kernel (grad/fd.py): a
    deterministic loss, a backtracking trust region, 2P+1 renders/step.
 
-Runs on a TPU if attached; falls back to the (slow) interpreter on CPU —
-shrink SIZE/SPP for a CPU try-out.
+Runs on a GPU; with JAX_PLATFORMS=cpu the kernels run in the (slow)
+interpreter — shrink SIZE/SPP for a CPU try-out.
 
 Usage:  python examples/scalable_scene.py
 """

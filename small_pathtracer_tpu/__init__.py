@@ -1,4 +1,4 @@
-"""small_pathtracer_tpu — a TPU-native differentiable path tracer.
+"""small_pathtracer_tpu — a differentiable path tracer (JAX; Pallas on the GPU).
 
 Brand-new JAX/XLA/Pallas framework with the capabilities of
 maurock/small-pathtracer (a smallpt-derived C++ CPU renderer); see SURVEY.md

@@ -87,19 +87,12 @@ class RenderConfig:
     aperture: float = 0.0
     focus_dist: float = 163.0
     # Megakernel sphere-table mode (ops/megakernel.build_kernel
-    # sphere_tab): "auto" = loop the spheres through runtime SMEM tables
+    # sphere_tab): "auto" = loop the spheres through a runtime table
     # when the scene has >= SPHERE_TABLE_AUTO_MIN of them (compiled code
     # size stays O(unrolled objects); sphere geometry/material changes
     # never recompile), "on"/"off" force it. Same estimator either way,
     # statistically identical renders (grazing-hit t can differ by ulps —
-    # FMA contraction, see build_kernel); unrolling runs faster for small
-    # scenes, the table wins compile time + scalability for large ones
-    # (PERF.md). "cluster" additionally groups the table's spheres into
-    # Morton-ordered bounding-sphere clusters and skips each cluster's
-    # 16-row scan whenever NO lane in the tile enters the bound — the
-    # TPU-native acceleration structure (per-lane grids/BVHs cannot pay
-    # under lockstep vector execution; per-TILE pruning can — measured
-    # crossover ladder in PERF.md round 4).
+    # FMA contraction, see build_kernel).
     sphere_table: str = "auto"
 
     def __post_init__(self):
@@ -107,11 +100,9 @@ class RenderConfig:
             raise ValueError(
                 f"unknown estimator {self.estimator!r}; one of {ESTIMATORS}"
             )
-        if self.sphere_table not in ("auto", "on", "off", "cluster",
-                                     "cluster_scratch"):
+        if self.sphere_table not in ("auto", "on", "off"):
             raise ValueError(
-                "sphere_table must be auto/on/off/cluster/cluster_scratch, "
-                f"got {self.sphere_table!r}"
+                f"sphere_table must be auto/on/off, got {self.sphere_table!r}"
             )
         if self.sampler not in ("random", "sobol"):
             raise ValueError(
@@ -135,7 +126,7 @@ class RenderConfig:
         return max(1, min(self.spp, budget))
 
 
-# sphere_table="auto" switches the megakernel to the looped SMEM sphere
-# table at this many spheres (below it, full unrolling compiles fast and
-# runs faster; measured crossover discussion in PERF.md).
+# sphere_table="auto" switches the megakernel to the looped sphere table at
+# this many spheres (below it, full unrolling compiles fast; the crossover
+# has not been measured on the GPU yet — PERF.md open questions).
 SPHERE_TABLE_AUTO_MIN = 48

@@ -27,14 +27,16 @@ tracers, after Burley, "Practical Hash-Based Owen Scrambling", JCGT 2020):
   decision's N samples changes (anti-correlated instead of independent).
 
 Everything here is pure elementwise uint32 jnp — add/mul/xor/shift/select
-only, no gathers, no u32->f32 casts (Mosaic-safe) — and is shared verbatim
+only, no gathers, no u32->f32 casts — and is shared verbatim
 by the jnp wavefront and the Pallas megakernel, so the schedules stay
 bit-identical per sample (the same guarantee the murmur backend has).
 
 The sample-within-pixel index is recovered from the packed path id
 (path_id = pixel * spp + sample, integrator/wavefront.py _chunk_paths) with
 an exact constant-divisor divmod (Granlund-Montgomery magic via 16-bit-limb
-mulhi) — no u64, no dynamic division on the VPU.
+mulhi) — no u64, no dynamic division. (The limb form and the cast detour
+below were needed by an earlier kernel compiler; ROADMAP lists them for
+simplification.)
 """
 
 from __future__ import annotations
@@ -131,8 +133,8 @@ def sobol_dim1(idx, nbits: int):
 
 def _bits_to_f01(bits):
     """Top-24-bit uint32 -> f32 in [0,1), matching the murmur backends'
-    precision. Mosaic has no u32->f32 cast; values < 2^24 are exact through
-    the i32 view (ops/megakernel._uniform uses the same trick)."""
+    precision. Values < 2^24 are exact through the i32 view
+    (ops/megakernel._uniform uses the same trick)."""
     q = (bits >> np.uint32(8)).view(jnp.int32)
     return q.astype(jnp.float32) * _INV_2_24
 
@@ -140,7 +142,7 @@ def _bits_to_f01(bits):
 # ---------------------------------------------------------------------------
 # Exact u32 divmod by a compile-time constant (Granlund-Montgomery /
 # Hacker's Delight 10-10 "magicu"), built from 16-bit-limb multiplies so it
-# runs on the VPU without u64 or hardware division.
+# runs without u64 or hardware division.
 # ---------------------------------------------------------------------------
 
 

@@ -13,8 +13,8 @@ The reference uses two stateful RNGs (dual-RNG contract C6,
 not even self-reproducible (time seed), parity with it is *statistical*, so we
 are free to use a proper counter-based generator.  Two backends:
 
-- ``"mix"`` (default): a murmur3-style 2-word finalizer, ~15 VPU ops per draw.
-  Fast path for TPU; quality validated by chi-square tests
+- ``"mix"`` (default): a murmur3-style 2-word finalizer, ~15 integer ops per
+  draw. The fast path; quality validated by chi-square tests
   (``tests/test_rng.py``).
 - ``"threefry"``: ``jax.random`` threefry, for gold-standard cross-checks.
 

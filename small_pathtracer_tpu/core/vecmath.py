@@ -1,15 +1,18 @@
 """Batched 3-vector math over (..., 3) arrays.
 
-TPU-native replacement for the reference's scalar ``Vec`` class
+Array replacement for the reference's scalar ``Vec`` class
 (/root/reference/src/smallpt.cpp:24-62): positions and RGB colors are both
-(..., 3) float32 arrays; everything is elementwise/VPU-friendly and fuses
-under XLA.
+(..., 3) float32 arrays; everything is elementwise and fuses under XLA.
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+
+# Precision for every float32 dot_general/einsum/matmul in the renderer: on
+# a GPU a float32 product may otherwise run in TF32 (~3 decimal digits).
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def dot(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
@@ -67,9 +70,7 @@ def sincos_2pi(u: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
     """(sin, cos) of ``2*pi*u`` for uniform draws ``u`` in [0, 1).
 
     Quarter-wave minimax polynomial instead of the transcendental pair:
-    every scatter-frame site burns one sincos per bounce, and on a v5e
-    this form measures +6% end-to-end in the Pallas megakernel (PERF.md,
-    2531 -> 2684 Mrays/s at 1024x768x512 NEE). The quadrant is exact
+    every scatter-frame site burns one sincos per bounce. The quadrant is exact
     (u is a binade-bounded uniform draw, so ``u*4`` and the fold are
     exact float ops); within a quadrant both values come from the same
     degree-9 odd polynomial for sin(pi/2 f) (cos via the complementary
@@ -105,7 +106,7 @@ def sincos_2pi(u: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
 
 def pow_const(x, k: float):
     """x ** k for a BAKED exponent: small integer k lowers to a
-    multiply/squaring chain (3 vmuls for k=8) instead of the VPU's
+    multiply/squaring chain (3 multiplies for k=8) instead of a
     multi-pass transcendental pow. Shared by the jnp guided estimator
     (experiment/path_guiding.py) and the Pallas kernel
     (ops/megakernel.py) so both produce identical floats (the

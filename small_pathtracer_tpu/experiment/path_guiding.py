@@ -41,8 +41,8 @@ Estimators:
 
 Voxels follow the reference's 10-unit quantization over its grid-scan
 bounds (x in [0,100), y in [-1,85), z in [-1,171), smallpt.cpp:386-388).
-This is the jnp-path demo (scan schedule, fixed depth); ops/megakernel.py
-carries the fused VMEM-table variant where supported.
+This is the jnp estimator (scan schedule, fixed depth); it has no kernel
+form (ROADMAP: a guided kernel that fetches lobes by voxel id).
 
 Measured (tests/test_path_guiding.py): on a small-light Cornell variant,
 guided MSE is well below cosine MSE at equal spp while the high-spp means
@@ -390,74 +390,3 @@ def _render_guided(scene: Scene, cam: CameraParams, cfg: RenderConfig,
         .mean(axis=1)
         .reshape(cfg.height, cfg.width, 3)
     )
-
-
-def render_guided_online_pallas(scene, cam, cfg, seed,
-                                beta: float = 0.6, k: float = 8.0,
-                                rounds: int = 4,
-                                train_spp: int = 16,
-                                train_bounces: int = 8,
-                                train_scale: int = 8,
-                                interpret: bool = False):
-    """ONLINE path guiding through the megakernel (round-3 VERDICT item
-    6): the lobe table is a RUNTIME VMEM input, so re-launching the
-    kernel with an updated table costs nothing — this renders cfg.spp in
-    ``rounds`` sample spans, refining the table BETWEEN spans.
-
-    Span 0 runs with an empty table (bitwise-identical to the unguided
-    kernel, tests/test_megakernel_guided.py) while the first cheap
-    moment pass trains at 1/``train_scale`` resolution; each later span
-    renders with everything learned so far and contributes to the SAME
-    image. Every span is unbiased for ANY fixed table (the mixture pdf
-    reweights exactly), and span r's table depends only on draws
-    independent of span r's samples, so the progressive sum stays
-    unbiased. Training cost is part of the render's wall clock — the
-    equal-time comparisons in PERF.md include it.
-
-    (The moment passes re-trace cheap low-res paths rather than reusing
-    the beauty samples literally: a jnp re-trace of a full-res span
-    costs ~7x the kernel span itself, and the kernel does not scatter
-    per-voxel moments — a future kernel-side accumulation would close
-    that gap.)
-
-    Returns ((h, w, 3) radiance SUM over spp, traces (2,))."""
-    import dataclasses
-
-    import jax.numpy as jnp
-
-    from ..ops.megakernel import render_pallas_guided
-
-    if rounds < 1:
-        raise ValueError("rounds must be >= 1")
-    spans = [cfg.spp // rounds] * rounds
-    spans[-1] += cfg.spp - sum(spans)
-    tcfg = dataclasses.replace(
-        cfg,
-        width=max(cfg.width // train_scale, 16),
-        height=max(cfg.height // train_scale, 16),
-        spp=train_spp,
-        use_pallas=False,
-    )
-    moments = jnp.zeros((N_VOXELS, 3), jnp.float32)
-    guide = guide_lobes(moments)
-    img = None
-    traces = None
-    s0 = 0
-    for r, n_s in enumerate(spans):
-        if n_s == 0:
-            continue
-        L, tr = render_pallas_guided(
-            scene, cam, cfg, seed, guide, beta, k,
-            interpret=interpret, s0=s0, n_s=n_s,
-        )
-        img = L if img is None else img + L
-        traces = tr if traces is None else traces + tr
-        s0 += n_s
-        if r < rounds - 1:
-            moments = moments + train_guide(
-                scene, cam,
-                dataclasses.replace(tcfg, seed=cfg.seed + 101 + r),
-                train_bounces, jnp.uint32(cfg.seed + 101 + r),
-            )
-            guide = guide_lobes(moments)
-    return img, traces

@@ -17,7 +17,7 @@ Reference semantics kept:
   x in [0,100), y in [-1,85), z in [-1,171) - 1.48M probes; unique keys are
   the state count (977 measured for the reference box scene).
 
-TPU-native deviations (documented): colors come from the deterministic
+Deviations from the reference (documented): colors come from the deterministic
 counter hash instead of C ``rand()`` (the reference's colors change every
 run — C6), and the state "dictionary" is virtual — any key's color is a
 pure function, so there is nothing to store or look up on device.

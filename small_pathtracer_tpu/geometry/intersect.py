@@ -63,7 +63,7 @@ def intersect_rects(rects, o: jnp.ndarray, d: jnp.ndarray) -> jnp.ndarray:
     o_n = o[:, ax]                      # (N,R) origin component along normal
     d_n = d[:, ax]                      # (N,R)
     # Reciprocal-multiply: ONE divide per ray axis (3 total), reused by all
-    # R rects — divisions are multi-op on the VPU and this is the hot loop.
+    # R rects — divisions are multi-op and this is the hot loop.
     # Double-where guard: a literal /0 would poison reverse-mode AD
     # (0-cotangent times inf tangent = NaN), so invert a sanitized
     # denominator and exclude parallel rays in `valid` instead. The Pallas
@@ -95,17 +95,18 @@ def intersect_quads(quads, o: jnp.ndarray, d: jnp.ndarray) -> jnp.ndarray:
     if Q == 0:
         return jnp.full((o.shape[0], 0), MISS_T, o.dtype)
     n = vm.cross(quads.edge_u, quads.edge_v)         # (Q,3), unnormalized
-    denom = jnp.einsum("nk,qk->nq", d, n)            # (N,Q)
+    denom = jnp.einsum("nk,qk->nq", d, n, precision=vm.HIGHEST)  # (N,Q)
     ok = denom != 0.0
     denom_safe = jnp.where(ok, denom, 1.0)
-    t = jnp.einsum("nqk,qk->nq", quads.corner[None] - o[:, None], n) / denom_safe
+    t = jnp.einsum("nqk,qk->nq", quads.corner[None] - o[:, None], n,
+                   precision=vm.HIGHEST) / denom_safe
     p = o[:, None, :] + t[..., None] * d[:, None, :] - quads.corner[None]
     # Gram matrix solve for (a, b).
     uu = jnp.sum(quads.edge_u * quads.edge_u, axis=-1)
     vv = jnp.sum(quads.edge_v * quads.edge_v, axis=-1)
     uv = jnp.sum(quads.edge_u * quads.edge_v, axis=-1)
-    pu = jnp.einsum("nqk,qk->nq", p, quads.edge_u)
-    pv = jnp.einsum("nqk,qk->nq", p, quads.edge_v)
+    pu = jnp.einsum("nqk,qk->nq", p, quads.edge_u, precision=vm.HIGHEST)
+    pv = jnp.einsum("nqk,qk->nq", p, quads.edge_v, precision=vm.HIGHEST)
     det = uu * vv - uv * uv
     det_safe = jnp.where(det != 0.0, det, 1.0)
     a = (pu * vv - pv * uv) / det_safe

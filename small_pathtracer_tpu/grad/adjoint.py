@@ -22,7 +22,7 @@ Design:
   in grad/warp.py;
 - multi-device: gradients are taken THROUGH shard_map (JAX transposes the
   sample-axis psum automatically), so scene-parameter gradients arrive
-  all-reduced over ICI with zero extra code.
+  all-reduced with zero extra code.
 """
 
 from __future__ import annotations
@@ -146,8 +146,8 @@ def make_sharded_train_step(cfg: RenderConfig, mesh, target,
                             train_cam: bool = False,
                             optimizer: str = "sgd"):
     """Jitted full training step over the mesh: sharded differentiable
-    render -> MSE vs target -> scene/camera grads (ICI all-reduced via psum
-    transpose) -> optimizer update. This is the driver's multi-chip dry-run
+    render -> MSE vs target -> scene/camera grads (all-reduced via psum
+    transpose) -> optimizer update. This is the driver's multi-device dry-run
     path (__graft_entry__.dryrun_multichip).
 
     train_fields: which scene leaf names receive updates. Default is the

@@ -120,7 +120,7 @@ def _proj_rows(cam: CameraParams):
     )
     H = jnp.asarray(cam.horizontal, jnp.float32)
     V = jnp.asarray(cam.vertical, jnp.float32)
-    det = jnp.dot(A, jnp.cross(H, V))
+    det = jnp.dot(A, jnp.cross(H, V), precision=vm.HIGHEST)
     return (
         jnp.cross(H, V) / det, jnp.cross(V, A) / det, jnp.cross(A, H) / det,
     )
@@ -131,9 +131,10 @@ def _film_shifted(rows, origin, t, X):
     t, plus the projective depth y0 (<=0 means at/behind the camera)."""
     r0, r1, r2 = rows
     Xo = X - origin - t
-    y0 = jnp.dot(Xo, r0)
+    y0 = jnp.dot(Xo, r0, precision=vm.HIGHEST)
     y0g = jnp.where(jnp.abs(y0) > 1e-9, y0, 1e-9)
-    return jnp.stack([jnp.dot(Xo, r1) / y0g, jnp.dot(Xo, r2) / y0g]), y0
+    return jnp.stack([jnp.dot(Xo, r1, precision=vm.HIGHEST) / y0g,
+                      jnp.dot(Xo, r2, precision=vm.HIGHEST) / y0g]), y0
 
 
 def _accumulate(cam, cfg, scene, g, S, J, tau, y0, measure, seed, lane0,
@@ -195,7 +196,8 @@ def _accumulate(cam, cfg, scene, g, S, J, tau, y0, measure, seed, lane0,
     f_p = L_p.reshape(n, n_sub, 3).mean(axis=1)
 
     gdot = jnp.sum(gk * (f_m - f_p), axis=-1)
-    v_n = jnp.einsum("kij,ki->kj", J, n_hat)                    # (n, 3)
+    v_n = jnp.einsum("kij,ki->kj", J, n_hat,
+                     precision=vm.HIGHEST)                        # (n, 3)
     return (gdot * measure)[:, None] * v_n
 
 
@@ -206,7 +208,7 @@ def rotate_camera(cam: CameraParams, omega) -> CameraParams:
     jax.grad through it is exact). Used for the interior (pathwise)
     term and for FD probes of the rotation gradient."""
     w = jnp.asarray(omega, jnp.float32)
-    t2 = jnp.dot(w, w)
+    t2 = jnp.dot(w, w, precision=vm.HIGHEST)
     small = t2 < 1e-12
     t2s = jnp.where(small, 1.0, t2)
     th = jnp.sqrt(t2s)
@@ -217,14 +219,17 @@ def rotate_camera(cam: CameraParams, omega) -> CameraParams:
         [w[2], 0.0, -w[0]],
         [-w[1], w[0], 0.0],
     ], jnp.float32)
-    R = jnp.eye(3, dtype=jnp.float32) + a * K + b * (K @ K)
+    R = jnp.eye(3, dtype=jnp.float32) + a * K + b * jnp.matmul(
+        K, K, precision=vm.HIGHEST)
     o = jnp.asarray(cam.origin, jnp.float32)
     A = jnp.asarray(cam.lower_left, jnp.float32) - o
     return cam._replace(
         origin=o,
-        lower_left=o + R @ A,
-        horizontal=R @ jnp.asarray(cam.horizontal, jnp.float32),
-        vertical=R @ jnp.asarray(cam.vertical, jnp.float32),
+        lower_left=o + jnp.matmul(R, A, precision=vm.HIGHEST),
+        horizontal=jnp.matmul(R, jnp.asarray(cam.horizontal, jnp.float32),
+                              precision=vm.HIGHEST),
+        vertical=jnp.matmul(R, jnp.asarray(cam.vertical, jnp.float32),
+                            precision=vm.HIGHEST),
     )
 
 

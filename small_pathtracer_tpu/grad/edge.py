@@ -32,7 +32,7 @@ another object occludes the limb both rays see the same first hit and the
 contribution cancels exactly — occlusion needs no explicit test.
 
 Everything is fixed-shape and batched over the phi samples: one
-path_trace_fixed call of 2*n_phi*n_sub lanes — TPU-shaped like any other
+path_trace_fixed call of 2*n_phi*n_sub lanes — shaped like any other
 wavefront launch.
 
 Two boundary estimators live here:
@@ -101,14 +101,14 @@ def project_film(cam: CameraParams, X: jnp.ndarray) -> jnp.ndarray:
     )
     H = jnp.asarray(cam.horizontal, jnp.float32)
     V = jnp.asarray(cam.vertical, jnp.float32)
-    det = jnp.dot(A, jnp.cross(H, V))
+    det = jnp.dot(A, jnp.cross(H, V), precision=vm.HIGHEST)
     r0 = jnp.cross(H, V) / det
     r1 = jnp.cross(V, A) / det
     r2 = jnp.cross(A, H) / det
     Xo = X - jnp.asarray(cam.origin, jnp.float32)
-    y0 = Xo @ r0
-    y1 = Xo @ r1
-    y2 = Xo @ r2
+    y0 = jnp.dot(Xo, r0, precision=vm.HIGHEST)
+    y1 = jnp.dot(Xo, r1, precision=vm.HIGHEST)
+    y2 = jnp.dot(Xo, r2, precision=vm.HIGHEST)
     y0 = jnp.where(jnp.abs(y0) > 1e-9, y0, 1e-9)
     return jnp.stack([y1 / y0, y2 / y0], axis=-1)
 
@@ -117,7 +117,7 @@ def _limb_point(o_cam, center, radius, phi):
     """Silhouette (limb) point of the sphere seen from o_cam at angle phi
     around the view axis. Differentiable in (center, radius)."""
     dvec = center - o_cam
-    D2 = jnp.dot(dvec, dvec)
+    D2 = jnp.dot(dvec, dvec, precision=vm.HIGHEST)
     D = jnp.sqrt(D2)
     dn = dvec / D
     # Guard D > r (camera outside the sphere); callers check visibility.
@@ -225,7 +225,8 @@ def _edge_grad_impl(scene: Scene, cam: CameraParams, cfg: RenderConfig,
 
     # d loss / d theta_j = sum_k  <g, f_in - f_out> (V_j . n̂) dl (2π/K) wh
     gdot = jnp.sum(g * (f_in - f_out), axis=-1)                   # (K,)
-    v_n = jnp.einsum("kij,ki->kj", J, n_hat)                      # (K, 4)
+    v_n = jnp.einsum("kij,ki->kj", J, n_hat,
+                     precision=vm.HIGHEST)                          # (K, 4)
     contrib = (gdot * dl)[:, None] * v_n
     d_theta = contrib.sum(axis=0) * (2.0 * jnp.pi / n_phi) * (w * h)
     return d_theta[:3], d_theta[3]
@@ -252,9 +253,9 @@ def _light_plane_hit(x, q, corner, n_l):
     """Intersection of the ray x->q with the light plane: y = x + t*(q-x),
     t = ((corner-x).n_l) / ((q-x).n_l). Returns (y (3,), t)."""
     dirv = q - x
-    denom = jnp.dot(dirv, n_l)
+    denom = jnp.dot(dirv, n_l, precision=vm.HIGHEST)
     denom = jnp.where(jnp.abs(denom) > 1e-9, denom, 1e-9)
-    t = jnp.dot(corner - x, n_l) / denom
+    t = jnp.dot(corner - x, n_l, precision=vm.HIGHEST) / denom
     return x + t * dirv, t
 
 
@@ -367,12 +368,12 @@ def _shadow_edge_impl(scene: Scene, cam: CameraParams, cfg: RenderConfig,
 
     # Inside the light parallelogram (general Gram solve).
     wvec = y - corner[None]
-    a11 = jnp.dot(eu, eu)
-    a12 = jnp.dot(eu, ev)
-    a22 = jnp.dot(ev, ev)
+    a11 = jnp.dot(eu, eu, precision=vm.HIGHEST)
+    a12 = jnp.dot(eu, ev, precision=vm.HIGHEST)
+    a22 = jnp.dot(ev, ev, precision=vm.HIGHEST)
     det = a11 * a22 - a12 * a12
-    b1 = wvec @ eu
-    b2 = wvec @ ev
+    b1 = jnp.dot(wvec, eu, precision=vm.HIGHEST)
+    b2 = jnp.dot(wvec, ev, precision=vm.HIGHEST)
     ua = (a22 * b1 - a12 * b2) / det
     ub = (a11 * b2 - a12 * b1) / det
     on_light = (ua > 0.0) & (ua < 1.0) & (ub > 0.0) & (ub < 1.0)
@@ -415,7 +416,7 @@ def _shadow_edge_impl(scene: Scene, cam: CameraParams, cfg: RenderConfig,
     seg = y - xf
     t2 = jnp.maximum(jnp.sum(seg * seg, axis=-1), 1e-12)
     d_l = seg / jnp.sqrt(t2)[:, None]
-    cos_l = jnp.abs(d_l @ n_l)
+    cos_l = jnp.abs(jnp.dot(d_l, n_l, precision=vm.HIGHEST))
     cos_s = jnp.abs(jnp.sum(d_l * nf, axis=-1))
     f_A = albf * e_light[None] * (
         cos_l * cos_s / (jnp.float32(jnp.pi) * t2)
@@ -430,7 +431,8 @@ def _shadow_edge_impl(scene: Scene, cam: CameraParams, cfg: RenderConfig,
     # dI/dtheta = -∮ f_A (V . n̂_out-of-shadow) dl  (Reynolds over the
     # shadowed subset of the light); vjump replaces the analytic jump
     # sign/existence.
-    v_n = jnp.einsum("kij,ki->kj", Jy, n_hat)                   # (N*K, 4)
+    v_n = jnp.einsum("kij,ki->kj", Jy, n_hat,
+                     precision=vm.HIGHEST)                        # (N*K, 4)
     contrib = (mask * vjump * gdot * dl)[:, None] * v_n
     d_theta = -contrib.sum(axis=0) * (2.0 * jnp.pi / n_phi)
     return d_theta[:3], d_theta[3]
@@ -583,7 +585,8 @@ def _indirect_edge_impl(scene: Scene, cam: CameraParams, cfg: RenderConfig,
             w_ang = cos_s / jnp.float32(jnp.pi)
         f_jump = (T * albedo) * (w_ang[:, None] * (L_in - L_out))
         gdot = jnp.sum(gf * f_jump, axis=-1)
-        v_n = jnp.einsum("kij,ki->kj", Jw, n_hat)               # (N*K, 4)
+        v_n = jnp.einsum("kij,ki->kj", Jw, n_hat,
+                         precision=vm.HIGHEST)                    # (N*K, 4)
         return (gdot * dl)[:, None] * v_n
 
     # Walk the prefix path depth by depth (static unroll). T carries the

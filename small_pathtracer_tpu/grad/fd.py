@@ -1,4 +1,4 @@
-"""Chip-speed sphere-geometry fitting: common-random-number finite
+"""Kernel-speed sphere-geometry fitting: common-random-number finite
 differences through the TABLE megakernel.
 
 The pathwise adjoint kernels (ops/megakernel_grad.py) differentiate
@@ -6,7 +6,7 @@ materials; sphere GEOMETRY gradients previously required the jnp-side
 boundary estimators (grad/edge.py, grad/soft.py), which run the slow
 wavefront. The sphere-table kernel (ops/megakernel.py sphere_tab) removes
 the blocker for a third route: geometry edits re-run WITHOUT recompiling,
-so a central difference is just two more chip-speed renders. With COMMON
+so a central difference is just two more kernel renders. With COMMON
 RANDOM NUMBERS (identical seed -> identical per-sample decision stream on
 both sides of the difference) the FD of the fixed-seed estimator is
 low-variance, and at practical deltas (~0.1-1 scene units) it captures
@@ -16,10 +16,8 @@ tests rely on (tests/test_parity_grad.py).
 
 Cost per SGD step: 2*P + 1 renders for P scalar parameters (central
 differences + one loss log), each at full kernel speed. For one sphere's
-center+radius that is 9 renders/step — on a v5e at 512x384x64spp about
-3.5 s/step at 64 spheres, independent of how many OTHER spheres the scene
-holds (the reference has no optimization story at all; the jnp soft/edge
-fits pay tens of seconds per step at comparable sizes).
+center+radius that is 9 renders/step, independent of how many OTHER
+spheres the scene holds (the reference has no optimization story at all).
 """
 
 from __future__ import annotations
@@ -47,15 +45,15 @@ def _table_cfg(cfg: RenderConfig) -> RenderConfig:
     return dataclasses.replace(cfg, sphere_table="on")
 
 
-def _render_mean(scene, cam, cfg, seed, interpret=False):
-    img, _ = render_pallas(scene, cam, cfg, seed, interpret=interpret)
+def _render_mean(scene, cam, cfg, seed):
+    img, _ = render_pallas(scene, cam, cfg, seed)
     return jnp.asarray(img, jnp.float32) / jnp.float32(cfg.spp)
 
 
-def _loss(scene, cam, cfg, seed, target, interpret):
+def _loss(scene, cam, cfg, seed, target):
     # Unclamped linear MSE, matching grad/adjoint.render_linear's fitting
     # convention (clamping would zero gradients on emissive pixels).
-    img = _render_mean(scene, cam, cfg, seed, interpret)
+    img = _render_mean(scene, cam, cfg, seed)
     return float(jnp.mean((img - target) ** 2))
 
 
@@ -78,15 +76,14 @@ def _perturb(scene: Scene, si: int, field: str, comp: int, eps: float):
 
 def fd_loss_and_grad(scene: Scene, cam: CameraParams, cfg: RenderConfig,
                      target, sphere_idx: int, fields=("center", "radius"),
-                     delta: float = 0.5, seed: int = 0,
-                     interpret: bool = False):
+                     delta: float = 0.5, seed: int = 0):
     """Loss + central-difference gradient w.r.t. the listed fields of
     sphere ``sphere_idx``. Every render shares ``seed`` (CRN). delta is in
     scene units for center/radius and albedo/emission units otherwise.
 
     Returns (loss, {field: np.ndarray gradient})."""
     cfg = _table_cfg(cfg)
-    loss = _loss(scene, cam, cfg, seed, target, interpret)
+    loss = _loss(scene, cam, cfg, seed, target)
     grads = {}
     for field in fields:
         n = FIELDS[field]
@@ -94,9 +91,9 @@ def fd_loss_and_grad(scene: Scene, cam: CameraParams, cfg: RenderConfig,
         d = delta if field in ("center", "radius") else min(delta, 0.05)
         for c in range(n):
             lp = _loss(_perturb(scene, sphere_idx, field, c, +d),
-                       cam, cfg, seed, target, interpret)
+                       cam, cfg, seed, target)
             lm = _loss(_perturb(scene, sphere_idx, field, c, -d),
-                       cam, cfg, seed, target, interpret)
+                       cam, cfg, seed, target)
             g[c] = (lp - lm) / (2.0 * d)
         grads[field] = g
     return loss, grads
@@ -105,7 +102,7 @@ def fd_loss_and_grad(scene: Scene, cam: CameraParams, cfg: RenderConfig,
 def fit_fd(scene: Scene, cam: CameraParams, cfg: RenderConfig, target,
            sphere_idx: int, fields=("center", "radius"), steps: int = 10,
            lr: float = 1.0, delta: float = 0.5, seed: int = 0,
-           interpret: bool = False, log=None):
+           log=None):
     """Normalized-step descent on FD gradients through the table kernel.
     Returns (fitted scene, [losses]).
 
@@ -129,7 +126,7 @@ def fit_fd(scene: Scene, cam: CameraParams, cfg: RenderConfig, target,
     for i in range(steps):
         loss, g = fd_loss_and_grad(
             s, cam, cfg, target, sphere_idx, fields,
-            delta=delta, seed=seed, interpret=interpret,
+            delta=delta, seed=seed,
         )
         if loss > best_loss:
             s = best_s

@@ -341,7 +341,7 @@ def sample_light_index(probs: jnp.ndarray, u: jnp.ndarray) -> jnp.ndarray:
     """Inverse-CDF draw of a light index: idx = #{k < K-1 : u >= cdf_k}.
 
     Branch-free over the (tiny) K axis — a (N, K-1) compare + sum, the
-    TPU-native form of std::upper_bound. Returns (N,) int32 in [0, K)."""
+    vectorized form of std::upper_bound. Returns (N,) int32 in [0, K)."""
     cdf = jnp.cumsum(probs)
     return jnp.sum(
         (u[..., None] >= cdf[None, :-1]).astype(jnp.int32), axis=-1

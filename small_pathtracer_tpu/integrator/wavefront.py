@@ -187,8 +187,8 @@ def _nee_sample(light, kind, probe_o, nl, u, glibc: bool):
 
         return d_l, w_fn, None
     # Mixed-kind list: compute both samplers on every lane, select by kind.
-    # K is tiny and lists are rare — the double work is a handful of VPU
-    # ops; the select keeps the wavefront branch-free.
+    # K is tiny and lists are rare — the double work is a handful of
+    # elementwise ops; the select keeps the wavefront branch-free.
     lp = sampling.sample_light_point(light, u1, u2)
     d_rect = vm.norm(lp - probe_o)
     s_center, s_radius = sampling.list_entry_sphere_params(light)
@@ -830,8 +830,8 @@ def _spawn(cam: CameraParams, cfg: RenderConfig, seed, px, py, pid_base,
     """Primary ray + path id for sample ``s_idx`` of the lane's pixel.
 
     px/py/pid_base (= pixel * spp) are loop-invariant lane constants,
-    precomputed OUTSIDE the while loop: integer div/mod is very expensive on
-    the VPU and XLA does not reliably hoist it out of while bodies.
+    precomputed OUTSIDE the while loop: integer div/mod is expensive and
+    XLA does not reliably hoist it out of while bodies.
 
     Camera-jitter counters 0/1 (and lens counters 2/3 when cfg.aperture > 0)
     never collide with bounce draws (those start at DRAWS_PER_BOUNCE
@@ -1009,9 +1009,10 @@ def render_counts(scene: Scene, cam: CameraParams, cfg: RenderConfig):
     extend/paths is the exact mean path length, the fixed C17 stat)."""
     check_glos_estimator(scene, cfg)
     if cfg.use_pallas:
-        from ..ops.megakernel import render_pallas
+        from ..ops.megakernel import render_pallas, trace_totals
 
-        img, n_tr = render_pallas(scene, cam, cfg, cfg.seed)
+        img, per_block = render_pallas(scene, cam, cfg, cfg.seed)
+        n_tr = trace_totals(per_block)
         return film.finalize(img / cfg.spp), (
             float(n_tr[0]), float(n_tr[1])
         )

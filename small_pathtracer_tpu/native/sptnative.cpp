@@ -1,7 +1,7 @@
 // Native host-side utilities for small_pathtracer_tpu.
 //
-// The reference is 100% native C++ (/root/reference/src/smallpt.cpp); in the
-// TPU rebuild the compute path is JAX/XLA and the runtime keeps native code
+// The reference is 100% native C++ (/root/reference/src/smallpt.cpp); in this
+// rebuild the compute path is JAX/XLA and the runtime keeps native code
 // where the host is genuinely hot:
 //
 //  - ppm_encode: ASCII P3 body formatting (smallpt.cpp:548-551 contract).

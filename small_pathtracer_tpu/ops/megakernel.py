@@ -1,4 +1,4 @@
-"""Pallas TPU megakernel: the fused regenerating path tracer.
+"""Pallas megakernel: the fused regenerating path tracer.
 
 This is the speed-of-light design for the hot loop (SURVEY.md section 7,
 steps 6): one kernel fuses EVERYTHING the reference's ``radiance()``
@@ -6,9 +6,11 @@ steps 6): one kernel fuses EVERYTHING the reference's ``radiance()``
 all primitives (:323-335), oriented normals + material fetch (:118-124),
 Russian roulette (:447-454), NEE light sampling (:363-369,457-479), cosine/
 uniform scattering (:337-361) — plus lane regeneration (camera respawn,
-contract C4/C5), so path state lives in VMEM registers across the entire
-bounce loop and HBM is touched only for per-lane work assignment (in) and
-the radiance accumulator (out).
+contract C4/C5), so path state lives in registers across the entire
+bounce loop and device memory is touched only for per-lane work
+assignment (in), runtime tables (scalar loads) and the radiance
+accumulator (out). On the GPU it runs on the Triton route, one lane per
+thread; on the CPU, in the Pallas interpreter (ops/route.py).
 
 Design choices (vs the jnp wavefront in integrator/wavefront.py, which
 defines the semantics):
@@ -38,36 +40,25 @@ nee_textbook), light modes intended / glibc_overflow (C13a).
 from __future__ import annotations
 
 import math
-from functools import partial
 
 import numpy as np
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..camera.pinhole import CameraParams
 from ..config import RenderConfig
 from ..core import ld, rng
 from ..core import vecmath as vm
-from ..scene.types import DIFF, Scene, SphereLight
+from ..scene.types import Scene, SphereLight
 from ..geometry.intersect import (
     MISS_T, SELF_HIT_EPS, SPHERE_EPS, SPHERE_EPS_REL,
 )
 from ..integrator.sampling import SHADOW_EPS
+from . import route
 
-# Lane tile: (TILE_ROWS, 128) f32 — 4096 lanes per grid step.
-# Env-overridable for tuning sweeps (SPT_TILE_ROWS). The north-star sweep
-# (PERF.md round 4: 8/16/32/64 rows -> 2084/2637/3036/2966 Mrays/s)
-# picked 32: a tile's while loop runs to its SLOWEST lane, and the
-# per-tile tail (max over lanes of total path work) shrinks with fewer
-# lanes per tile, beating 64 rows by ~2.3%; below 32 rows the fixed
-# per-iteration overhead and lost ILP dominate.
 import os as _os
-
-TILE_ROWS = int(_os.environ.get("SPT_TILE_ROWS", 32))
-TILE = TILE_ROWS * 128
 
 
 def _fold_enabled() -> bool:
@@ -113,7 +104,8 @@ def _hash_u32_inner(seed_u32, path_id, ctr):
 
 def _uniform(seed_u32, path_id, ctr):
     bits = _hash_u32(seed_u32, path_id, ctr)
-    # Mosaic has no u32->f32 cast; bits>>8 < 2^24 so the i32 view is exact.
+    # bits>>8 < 2^24, so the i32 view is exact (the u32->f32 detour is kept
+    # for bit-parity with core/rng.py; ROADMAP lists it for removal).
     q = (bits >> np.uint32(8)).view(jnp.int32)
     return q.astype(jnp.float32) * np.float32(1.0 / (1 << 24))
 
@@ -413,11 +405,9 @@ def _iter_hits(rects, quads, spheres, ox, oy, oz, dx, dy, dz,
 
 
 class _FlatRows:
-    """Row-indexing shim over a FLAT 1-D SMEM table: ref2d[i, c] ->
-    flat[i*stride + c]. SMEM tiles the TRAILING dimension to 128 lanes, so
-    a (K, 3) scalar table would burn 128x its bytes (measured: 1024
-    spheres as 2-D tables blew the 1 MB SMEM budget at 2.01 MB); flat 1-D
-    arrays only pad the total length."""
+    """Row-indexing shim over a FLAT 1-D runtime table: ref2d[i, c] ->
+    flat[i*stride + c]. The kernels read runtime tables with scalar loads
+    at computed offsets, so every table ships flat."""
 
     def __init__(self, ref, stride: int):
         self.ref = ref
@@ -428,48 +418,22 @@ class _FlatRows:
         return self.ref[i * self.stride + c]
 
 
-# Packed sphere-table row layout (flat f32 SMEM, stride 16 for 64-byte
-# row alignment): [cx, cy, cz, radius, alb_r, alb_g, alb_b, emi_r, emi_g,
+# Packed sphere-table row layout (flat f32, stride 16 for 64-byte row
+# alignment): [cx, cy, cz, radius, alb_r, alb_g, alb_b, emi_r, emi_g,
 # emi_b, refl, pad x5]. One row per sphere: the loop computes ONE base
-# index (i*16) and reads everything at constant offsets. The scalar
-# core's loads/address math bound the scan — packing + alignment + the
-# _TAB_UNROLL block unroll took the v5e ladder from 126/74/25 to
-# 215/137/45 Mrays/s at 64/256/1024 spheres (512x384x64spp NEE; PERF.md).
+# index (i*16) and reads everything at constant offsets.
 TAB_STRIDE = 16
-
-# Table-scan manual unrolling: U rows per fori_loop iteration (plus a
-# static epilogue for the remainder) overlaps one row's scalar loads and
-# address math with neighbors' vector work. Code size stays O(U).
-# Measured on the v5e at 256 spheres: U=1 78, U=4 121, U=8 137 Mrays/s;
-# U=16 compiles pathologically slowly (minutes) for no further gain.
-_TAB_UNROLL = 8
 
 
 def _table_scan(S: int, body, carry):
-    """carry = body(i, carry) for i in range(S), as a fori_loop over
-    blocks of _TAB_UNROLL rows + a static remainder epilogue (Mosaic only
-    supports unroll=1 or full unrolling in lax loops)."""
-    U = _TAB_UNROLL
-    n_blocks = S // U
-    done = 0
-    if n_blocks > 1:
-        def blk(ib, c):
-            base = ib * U
-            for j in range(U):
-                c = body(base + j, c)
-            return c
-
-        carry = jax.lax.fori_loop(0, n_blocks, blk, carry)
-        done = n_blocks * U
-    for i in range(done, S):
-        carry = body(np.int32(i), carry)
-    return carry
+    """carry = body(i, carry) for i in range(S) (the sphere-table scan)."""
+    return jax.lax.fori_loop(np.int32(0), np.int32(S), body, carry)
 
 
 def _table_sphere_hit(tab_ref, i, ox, oy, oz, dx, dy, dz):
     """One table sphere's (t_i, valid) — the SAME expression tree as the
     unrolled sphere branch of _iter_hits (smallpt.cpp:229-239 semantics),
-    with the per-object constants read from the packed flat SMEM table at
+    with the per-object constants read from the packed flat table at
     a traced row index. Returns the center and the row base (the caller
     reads materials from it; the winner's normal is reconstructed after
     the scan)."""
@@ -502,177 +466,6 @@ def _table_sphere_hit(tab_ref, i, ox, oy, oz, dx, dy, dz):
     return t_i, valid, (cx, cy, cz), b, near
 
 
-# Bounding-sphere clusters: the TPU-native acceleration structure for
-# the sphere table (round-3 VERDICT item 5). Per-LANE pruning (grids/
-# BVHs) cannot pay on a VPU — lanes execute in lockstep, and a per-lane
-# random access into an N-entry table costs O(N/128) select-chain work
-# (_gather_vmem_table), so a DDA's "visit only your cells" never skips
-# anything the tile as a whole still executes. What CAN skip work is
-# TILE-granularity pruning: group spheres into Morton-ordered clusters
-# of CLUSTER_SIZE with bounding spheres in SMEM, and scan each cluster
-# under a SCALAR lax.cond on "does ANY lane's ray enter the bound" —
-# when no lane does, the whole 16-sphere inner scan is skipped by every
-# lane at once. Coherent ray packets (primaries, shadow probes toward
-# one light) prune well; decorrelated diffuse bounces degrade to the
-# linear scan plus the cheap bound tests. Measured ladder in PERF.md.
-CLUSTER_SIZE = 16
-
-
-def cluster_scene_spheres(scene: Scene, group: int = CLUSTER_SIZE):
-    """Morton-order the scene's spheres and group them into clusters.
-
-    Returns (scene with spheres PERMUTED into cluster order — the same
-    sphere set, so renders are estimator-identical; bounds_flat f32
-    (K*4,) rows [bx, by, bz, br]; meta_flat i32 (K*2,) rows
-    [start, count] into the packed sphere table)."""
-    import numpy as _np
-
-    c = _np.asarray(scene.spheres.center, _np.float64)
-    r = _np.asarray(scene.spheres.radius, _np.float64)
-    S = c.shape[0]
-    if S == 0:
-        raise ValueError("cluster_scene_spheres: no spheres")
-    lo = c.min(axis=0)
-    ext = _np.maximum(c.max(axis=0) - lo, 1e-6)
-    q = _np.clip(((c - lo) / ext * 1023).astype(_np.int64), 0, 1023)
-
-    def _spread(v):
-        v = (v | (v << 16)) & 0x030000FF
-        v = (v | (v << 8)) & 0x0300F00F
-        v = (v | (v << 4)) & 0x030C30C3
-        v = (v | (v << 2)) & 0x09249249
-        return v
-
-    morton = _spread(q[:, 0]) | (_spread(q[:, 1]) << 1) | (
-        _spread(q[:, 2]) << 2
-    )
-    perm = _np.argsort(morton, kind="stable")
-    sp = scene.spheres
-    scene_p = scene._replace(spheres=sp._replace(
-        center=sp.center[perm], radius=sp.radius[perm],
-        albedo=sp.albedo[perm], emission=sp.emission[perm],
-        refl=sp.refl[perm], gloss=sp.gloss[perm],
-    ))
-    cp = c[perm]
-    rp = r[perm]
-    bounds = []
-    meta = []
-    for s0 in range(0, S, group):
-        s1 = min(s0 + group, S)
-        cc = cp[s0:s1]
-        rr = rp[s0:s1]
-        ctr = cc.mean(axis=0)
-        br = float(_np.sqrt(((cc - ctr) ** 2).sum(axis=1)).max()
-                   + rr.max())
-        bounds.append([ctr[0], ctr[1], ctr[2], br])
-        meta.append([s0, s1 - s0])
-    return (
-        scene_p,
-        jnp.asarray(_np.asarray(bounds, _np.float32).reshape(-1)),
-        jnp.asarray(_np.asarray(meta, _np.int32).reshape(-1)),
-    )
-
-
-# Scratch pool for the pl.when cluster variant: slots for the largest
-# nearest-hit carry (want_shading + want_geom: 11 f32 + 5 i32 planes of
-# (TILE_ROWS, 128) — 256 KB VMEM at 32 rows).
-_SCRATCH_F32 = 11
-_SCRATCH_I32 = 5
-
-
-def _cluster_scan_scratch(cluster, body, carry, ox, oy, oz, dx, dy, dz):
-    """The pl.when-mutating-VMEM-scratch cluster scan (round-4 PERF.md's
-    named next experiment): identical pruning decisions and row math as
-    _cluster_scan, but the nearest-hit state lives in VMEM scratch refs
-    instead of lax.cond carries — Mosaic materializes cond carries per
-    branch (the measured cost that made the cond variant LOSE to the
-    plain scan), while a predicated region over refs carries nothing.
-    Executed clusters pay explicit scratch loads/stores instead."""
-    bounds_ref, meta_ref, K, pool = cluster
-    f32_refs, i32_refs = pool
-    single = not isinstance(carry, tuple)
-    tup = (carry,) if single else tuple(carry)
-    slots = []
-    fi = ii = 0
-    for v in tup:
-        if v.dtype == jnp.int32:
-            ref = i32_refs[ii]
-            ii += 1
-        else:
-            ref = f32_refs[fi]
-            fi += 1
-        ref[...] = v
-        slots.append(ref)
-
-    def outer(k, c):
-        b = k * np.int32(4)
-        bx = bounds_ref[b]
-        by = bounds_ref[b + 1]
-        bz = bounds_ref[b + 2]
-        br = bounds_ref[b + 3]
-        opx, opy, opz = bx - ox, by - oy, bz - oz
-        bq = opx * dx + opy * dy + opz * dz
-        d2 = opx * opx + opy * opy + opz * opz - bq * bq
-        hitb = (d2 < br * br) & ((bq + br) > 0.0)
-        any_ = jnp.max(jnp.where(hitb, np.int32(1), np.int32(0)))
-        start = meta_ref[k * np.int32(2)]
-        cnt = meta_ref[k * np.int32(2) + 1]
-
-        @pl.when(any_ > 0)
-        def _scan():
-            cc = tuple(r[...] for r in slots)
-            cc = cc[0] if single else cc
-            out = jax.lax.fori_loop(start, start + cnt, body, cc)
-            out = (out,) if single else tuple(out)
-            for r, v in zip(slots, out):
-                r[...] = v
-
-        return c
-
-    jax.lax.fori_loop(0, np.int32(K), outer, np.int32(0))
-    res = tuple(r[...] for r in slots)
-    return res[0] if single else res
-
-
-def _cluster_scan(cluster, body, carry, ox, oy, oz, dx, dy, dz):
-    """carry = body(i, carry) for each table row i, cluster by cluster,
-    with each cluster's inner scan under a scalar any-lane-hits-bound
-    cond. Replaces _table_scan when cluster pruning is on; `body` is the
-    SAME per-row closure, so expression trees (and renders) match the
-    plain table scan exactly for the rows that do run — and a skipped
-    cluster, by the bound's conservativeness, contains no row that could
-    have won the nearest-hit chain for ANY lane. A 4-tuple ``cluster``
-    (with a scratch pool) dispatches to _cluster_scan_scratch."""
-    if len(cluster) > 3:
-        return _cluster_scan_scratch(
-            cluster, body, carry, ox, oy, oz, dx, dy, dz
-        )
-    bounds_ref, meta_ref, K = cluster
-
-    def outer(k, c):
-        b = k * np.int32(4)
-        bx = bounds_ref[b]
-        by = bounds_ref[b + 1]
-        bz = bounds_ref[b + 2]
-        br = bounds_ref[b + 3]
-        opx, opy, opz = bx - ox, by - oy, bz - oz
-        bq = opx * dx + opy * dy + opz * dz
-        d2 = opx * opx + opy * opy + opz * opz - bq * bq
-        # Enter test: closest approach inside the bound and the bound not
-        # entirely behind the origin (bq + br > 0 keeps origins inside).
-        hitb = (d2 < br * br) & ((bq + br) > 0.0)
-        any_ = jnp.max(jnp.where(hitb, np.int32(1), np.int32(0)))
-        start = meta_ref[k * np.int32(2)]
-        cnt = meta_ref[k * np.int32(2) + 1]
-
-        def scan(cc):
-            return jax.lax.fori_loop(start, start + cnt, body, cc)
-
-        return jax.lax.cond(any_ > 0, scan, lambda cc: cc, c)
-
-    return jax.lax.fori_loop(0, np.int32(K), outer, carry)
-
-
 def _probe_unrolled(rects, quads, spheres, light_id: int,
                     ox, oy, oz, dx, dy, dz, sphere_tab=None):
     """Any-occluder shadow probe: (t_light, success).
@@ -702,8 +495,7 @@ def _probe_unrolled(rects, quads, spheres, light_id: int,
         # Looped table spheres sit AFTER every unrolled id, so they block
         # with the strict compare (t_i < t_l), exactly like an unrolled
         # sphere at the same position in the scan order.
-        tab_ref, S, _ = sphere_tab[:3]
-        cluster = sphere_tab[3] if len(sphere_tab) > 3 else None
+        tab_ref, S, _ = sphere_tab
 
         def body(i, occ_i):
             t_i, valid, _, _, _ = _table_sphere_hit(
@@ -712,15 +504,7 @@ def _probe_unrolled(rects, quads, spheres, light_id: int,
             blk = valid & (t_i < t_l)
             return occ_i | jnp.where(blk, np.int32(1), np.int32(0))
 
-        if cluster is not None:
-            occ_t = _cluster_scan(
-                cluster, body, jnp.zeros_like(ox, dtype=jnp.int32),
-                ox, oy, oz, dx, dy, dz,
-            )
-        else:
-            occ_t = _table_scan(
-                S, body, jnp.zeros_like(ox, dtype=jnp.int32)
-            )
+        occ_t = _table_scan(S, body, jnp.zeros_like(ox, dtype=jnp.int32))
         success = success & (occ_t == 0)
     return t_l, success
 
@@ -795,8 +579,7 @@ def _trace_unrolled(rects, quads, spheres, light_id, ox, oy, oz, dx, dy, dz,
         t_best = jnp.where(win, t_i, t_best)
         if want_obj:
             obj_best = jnp.where(win, np.int32(obj_id), obj_best)
-        # Logical update, not jnp.where-over-bools (Mosaic lowers bool
-        # selects through i8 and fails on the i8->i1 truncation).
+        # Logical update, not jnp.where-over-bools.
         if obj_id in light_ids:
             is_light = is_light | win
         else:
@@ -823,7 +606,7 @@ def _trace_unrolled(rects, quads, spheres, light_id, ox, oy, oz, dx, dy, dz,
 
     if sphere_tab is not None:
         # Looped sphere table (scalable-scene mode, build_kernel
-        # sphere_tab=True): geometry/materials are RUNTIME SMEM tables and
+        # sphere_tab=True): geometry/materials are RUNTIME tables and
         # the scan is a fori_loop — O(1) compiled code size at any sphere
         # count, no recompile when sphere positions/radii/materials change.
         # Expression trees and scan order (table spheres after every
@@ -831,8 +614,7 @@ def _trace_unrolled(rects, quads, spheres, light_id, ox, oy, oz, dx, dy, dz,
         # equality is statistical, not bitwise (FMA contraction differs
         # for constants vs loop scalars — see build_kernel docstring).
         # Table spheres are never the light.
-        tab_ref, S, base_id = sphere_tab[:3]
-        cluster = sphere_tab[3] if len(sphere_tab) > 3 else None
+        tab_ref, S, base_id = sphere_tab
         i32z = jnp.zeros_like(ox, dtype=jnp.int32)
 
         def as_i32(b):
@@ -887,11 +669,7 @@ def _trace_unrolled(rects, quads, spheres, light_id, ox, oy, oz, dx, dy, dz,
                     )
                 return out
 
-            if cluster is not None:
-                scanned = _cluster_scan(cluster, body, carry,
-                                        ox, oy, oz, dx, dy, dz)
-            else:
-                scanned = _table_scan(S, body, carry)
+            scanned = _table_scan(S, body, carry)
             if want_geom:
                 (t_best, won_i, a0, a1, a2, e0, e1, e2, cbx, cby, cbz,
                  msp, mrf, ob, rad_b, near_b) = scanned
@@ -938,12 +716,7 @@ def _trace_unrolled(rects, quads, spheres, light_id, ox, oy, oz, dx, dy, dz,
                     jnp.where(win, (base_id + i).astype(jnp.int32), ob),
                 )
 
-            if cluster is not None:
-                t_best, won_i, ob = _cluster_scan(
-                    cluster, body, carry, ox, oy, oz, dx, dy, dz
-                )
-            else:
-                t_best, won_i, ob = _table_scan(S, body, carry)
+            t_best, won_i, ob = _table_scan(S, body, carry)
             is_light = is_light & ~(won_i > 0)
             if want_obj:
                 obj_best = ob
@@ -1033,7 +806,7 @@ def make_spawn(cam: CameraParams, cfg: RenderConfig):
 
 
 def _runtime_materials(objs: list[dict], alb_ref, emi_ref, base: int):
-    """Replace baked albedo/emission constants with SMEM scalar loads —
+    """Replace baked albedo/emission constants with scalar table loads —
     used by the differentiable kernels so a fit loop updates materials
     WITHOUT recompiling (geometry stays baked)."""
     out = []
@@ -1052,7 +825,7 @@ def _light_select_cdf(ml, all_objs, mode, emi_ref=None):
     constants bit-match the jnp path's device values.
 
     emi_ref=None: all values are np.float32 compile-time constants.
-    emi_ref given (runtime SMEM material table, build_kernel(mat_refs=True)):
+    emi_ref given (runtime material table, build_kernel(mat_refs=True)):
     traced scalars read from the table — selection follows fitted emissions
     like the jnp path's object_arrays(scene) does."""
     k = len(ml)
@@ -1096,62 +869,6 @@ def _light_select_cdf(ml, all_objs, mode, emi_ref=None):
         acc = acc + x
         cdf.append(acc)
     return q, cdf, e_lights
-
-
-def _gather_vmem_table(tab_ref, hi, lo, n_chunks: int):
-    """Per-lane gather from a VMEM table of n_chunks*128 scalars.
-
-    Mosaic's supported dynamic gather is along the LANE axis only
-    (take_along_axis(src, idx, axis=1), idx in [0,128)), so the table is
-    stored as (n_chunks, 128) rows and the chunk dimension is resolved by
-    an unrolled broadcast+select: entry i lives at row i>>7, lane i&127.
-    Measured ~0.5% of bounce-body time per gather on a v5e — the reason
-    the guide table is oct-PACKED into one int32 plane (13 gathers/bounce)
-    rather than three f32 planes (39: measured 3445 -> 2098 Mrays/s)."""
-    out = jnp.zeros_like(hi, dtype=tab_ref.dtype)
-    for h in range(n_chunks):
-        row = jnp.broadcast_to(tab_ref[h:h + 1, :], hi.shape)
-        g = jnp.take_along_axis(row, lo, axis=1)
-        out = jnp.where(hi == np.int32(h), g, out)
-    return out
-
-
-# Unguided-voxel sentinel for the packed oct guide table: iu is clipped to
-# [-32767, 32767] so bit 31 of a real entry never patterns to int32 min.
-GUIDE_SENTINEL = np.int32(-(2 ** 31))
-
-
-def _oct_decode(packed):
-    """Packed oct entry -> (mux, muy, muz, use). jnp; shared by the kernel
-    body and dequantize_guide so both see bit-identical lobe vectors.
-
-    Layout: low 16 bits = iu, high 16 = iv (two's complement int16), each
-    mapping to [-1, 1] via /32767; (u, v) is the octahedral chart of the
-    unit sphere (z = 1-|u|-|v|, lower hemisphere folded). The sentinel
-    decodes like any entry (to a finite unit vector) and is masked by
-    `use` — callers gate all lobe math on it."""
-    iu = (packed << np.int32(16)) >> np.int32(16)
-    iv = packed >> np.int32(16)
-    q = np.float32(1.0 / 32767.0)
-    u = iu.astype(jnp.float32) * q
-    v = iv.astype(jnp.float32) * q
-    az = np.float32(1.0) - jnp.abs(u) - jnp.abs(v)
-    fold = az < np.float32(0.0)
-    su = jnp.where(u >= 0, np.float32(1.0), np.float32(-1.0))
-    sv = jnp.where(v >= 0, np.float32(1.0), np.float32(-1.0))
-    uf = jnp.where(fold, (np.float32(1.0) - jnp.abs(v)) * su, u)
-    vf = jnp.where(fold, (np.float32(1.0) - jnp.abs(u)) * sv, v)
-    inv = jax.lax.rsqrt(uf * uf + vf * vf + az * az)
-    return uf * inv, vf * inv, az * inv, packed != GUIDE_SENTINEL
-
-
-
-def _pow_const(x, k: float):
-    """vm.pow_const — the guided kernel evaluates the power-cosine pdf at
-    every bounce, and pow was the dominant term of the measured guiding
-    overhead (PERF.md round 5); the jnp guided estimator shares the same
-    chain for bit-parity."""
-    return vm.pow_const(x, float(k))
 
 
 def _cone_sample_kernel(cx, cy, cz, rad2, px_, py_, pz_, lu, lv):
@@ -1201,22 +918,26 @@ def _cone_sample_kernel(cx, cy, cz, rad2, px_, py_, pz_, lu, lv):
 
 
 def build_kernel(scene: Scene, cam: CameraParams, cfg: RenderConfig,
-                 mat_refs: bool = False,
-                 guide_cfg: tuple[float, float] | None = None,
-                 sphere_tab: bool = False,
-                 cluster_tab: bool = False,
-                 guide_primary: bool = False):
+                 mat_refs: bool = False, sphere_tab: bool = False):
     """Returns the Pallas kernel body closed over scene/cam/cfg constants.
 
-    mat_refs=True: the kernel takes two extra leading refs (alb_ref,
-    emi_ref — (K, 3) SMEM material tables, global object order) after the
-    seed and reads materials from them instead of baking them as
-    immediates; the RNG/trace/shade structure is otherwise identical, so
-    renders are bit-identical to the baked kernel at equal materials.
+    One lane traces one path at a time; the block's lanes are 1-D arrays
+    and the whole path state lives in registers as while-loop carries.
+    Kernel refs, in order: seed (1,) u32; [alb, emi material tables];
+    [packed sphere table]; the five lane planes (px, py, path-id base,
+    s_start, s_stop); the three radiance outputs; the block's (1, 2) i32
+    [extend, probe] trace counts.
+
+    mat_refs=True: the kernel takes two extra refs (alb_ref, emi_ref —
+    (K, 3) runtime material tables, global object order) after the seed
+    and reads materials from them with scalar loads instead of baking
+    them as immediates; the RNG/trace/shade structure is otherwise
+    identical, so renders are bit-identical to the baked kernel at equal
+    materials.
 
     sphere_tab=True (scalable-scene mode, implies mat_refs): the scene's
     spheres are NOT unrolled — the kernel takes one further ref after the
-    material tables, a flat (S*TAB_STRIDE,) f32 SMEM table of packed
+    material tables, a flat (S*TAB_STRIDE,) f32 table of packed
     per-sphere rows [cx, cy, cz, radius, albedo rgb, emission rgb, refl]
     (_sphere_tables), and scans it with a fori_loop inside every
     nearest-hit/probe. Compiled code size is O(unrolled objects)
@@ -1229,44 +950,23 @@ def build_kernel(scene: Scene, cam: CameraParams, cfg: RenderConfig,
     (FMA), and near-cancelling grazing hits amplify that to ~30 ulps of t
     — the same divergence class as the documented jnp-vs-kernel FMA gap
     (tests/test_megakernel.py sphere-scene tolerances). Rects, quads, and
-    the light stay compile-time (the light must not be a table sphere).
-
-    guide_cfg=(beta, k): voxel path guiding fused into the bounce loop
-    (experiment/path_guiding.py defines the estimator; this is its
-    chip-speed form). The kernel takes ONE extra VMEM ref (after the seed,
-    before the material refs if any): a (rows, 128) int32 plane holding
-    each voxel's lobe as a 2x16-bit octahedral code (pack_guide_planes;
-    GUIDE_SENTINEL = unguided voxel). One packed gather per bounce instead
-    of three f32 gathers — the gather is the dominant guiding cost (see
-    _gather_vmem_table). At each diffuse vertex the continuation samples
-    beta*power-cosine(k)-around-mu + (1-beta)*cosine and reweights by the
-    exact mixture pdf — unbiased for any table (the pdf uses the DECODED
-    mu, so quantization costs nothing in bias, only ~2e-5 rad of lobe
-    aim). Only the cosine-continuation estimators compose ("cosine",
-    "nee_textbook"); C13-continuation estimators replace the bounce with
-    the light sample, leaving nothing to guide."""
+    the light stay compile-time (the light must not be a table sphere)."""
     rects, quads, spheres, light, lightlist = _scene_consts(scene)
     # sphere_tab: spec/refr code inclusion still keys on the ACTUAL scene
     # (refl is part of the build cache key — it is not a training target),
     # but the per-sphere constants never reach the trace: the table loop
-    # reads them from SMEM at run time.
+    # reads them from the table at run time.
     has_spec_all = any(o["refl"] == 1 for o in rects + quads + spheres)
     has_refr_all = any(o["refl"] == 2 for o in rects + quads + spheres)
     has_glos_all = any(o["refl"] == 3 for o in rects + quads + spheres)
     if has_glos_all:
         # GLOS (modified-Phong) extension — integrator/wavefront.py
         # check_glos_estimator defines which estimators have glossy
-        # semantics; the guided mixture's lobe reweighting assumes the
-        # cosine continuation pdf, so it does not compose either.
+        # semantics.
         if cfg.estimator not in ("cosine", "nee_textbook", "mis"):
             raise ValueError(
                 f"estimator {cfg.estimator!r} has no glossy (GLOS) "
                 "semantics; use cosine / nee_textbook / mis"
-            )
-        if guide_cfg is not None:
-            raise ValueError(
-                "guided rendering does not compose with GLOS primitives "
-                "(the guide mixture reweights against the cosine pdf)"
             )
     if sphere_tab and any(o["refl"] == 3 for o in spheres):
         raise ValueError(
@@ -1276,9 +976,6 @@ def build_kernel(scene: Scene, cam: CameraParams, cfg: RenderConfig,
         )
     S_tab = len(spheres)
     base_tab = len(rects) + len(quads)
-    n_clusters = -(-S_tab // CLUSTER_SIZE) if S_tab else 0
-    if cluster_tab and not sphere_tab:
-        raise ValueError("cluster_tab=True requires sphere_tab=True")
     if sphere_tab:
         if not mat_refs:
             raise ValueError(
@@ -1305,19 +1002,6 @@ def build_kernel(scene: Scene, cam: CameraParams, cfg: RenderConfig,
                 "strips spheres from the selection CDF's object list)"
             )
         spheres = []
-    guided = guide_cfg is not None
-    if guided:
-        if cfg.estimator not in ("cosine", "nee_textbook", "mis"):
-            raise ValueError(
-                "guided megakernel composes with the cosine-continuation "
-                "estimators ('cosine', 'nee_textbook', 'mis') only; "
-                f"got estimator={cfg.estimator!r}"
-            )
-        from ..experiment.path_guiding import _LO as G_LO, _NVOX as G_NVOX
-        g_beta = np.float32(guide_cfg[0])
-        g_k = np.float32(guide_cfg[1])
-        g_inv_k1 = np.float32(1.0 / (float(guide_cfg[1]) + 1.0))
-        g_norm = np.float32((float(guide_cfg[1]) + 1.0) / (2.0 * math.pi))
     has_spec = has_spec_all
     has_refr = has_refr_all
     has_glos = has_glos_all
@@ -1337,7 +1021,7 @@ def build_kernel(scene: Scene, cam: CameraParams, cfg: RenderConfig,
     # Multi-emitter light list (scene.lights): per-light compile-time
     # constants + a per-lane inverse-CDF selection draw in the kernel body
     # (the chained-select form of sampling.gather_light — no dynamic
-    # gather, Mosaic-friendly). Semantics match integrator/wavefront.py
+    # gather). Semantics match integrator/wavefront.py
     # _select_light exactly: light k with probability q_k, NEE weight / q_k.
     multi = lightlist is not None
     if multi and glibc:
@@ -1451,14 +1135,6 @@ def build_kernel(scene: Scene, cam: CameraParams, cfg: RenderConfig,
         return wrapped * np.float32(1.0 / 2147483647.0)
 
     def kernel(seed_ref, *refs):
-        if guided:
-            gpk_ref = refs[0]
-            refs = refs[1:]
-            if guide_primary:
-                # Per-LANE primary-vertex lobe (loop-invariant): decode
-                # ONCE — zero in-kernel table reads (the gather was the
-                # measured guiding cost, PERF.md).
-                g_lobe = gpk_ref[...]
         if mat_refs:
             alb_ref, emi_ref = refs[0], refs[1]
             refs = refs[2:]
@@ -1477,26 +1153,8 @@ def build_kernel(scene: Scene, cam: CameraParams, cfg: RenderConfig,
         if sphere_tab:
             # Packed per-sphere rows (TAB_STRIDE f32 each) — geometry AND
             # materials; the scan never touches the (K*3) material tables.
-            if cluster_tab == "scratch":
-                # pl.when variant: the pallas_call appends the scratch
-                # pool (11 f32 + 5 i32 planes) AFTER the output refs,
-                # i.e. at the END of ``refs``.
-                n_scr = _SCRATCH_F32 + _SCRATCH_I32
-                scr = refs[-n_scr:]
-                refs = refs[:-n_scr]
-                pool = (scr[:_SCRATCH_F32], scr[_SCRATCH_F32:])
-                tab = (refs[0], S_tab, base_tab,
-                       (refs[1], refs[2], n_clusters, pool))
-                refs = refs[3:]
-            elif cluster_tab:
-                # + bounding-sphere cluster tables (cluster_scene_spheres
-                # order): bounds f32 (K*4,), meta i32 (K*2,).
-                tab = (refs[0], S_tab, base_tab,
-                       (refs[1], refs[2], n_clusters))
-                refs = refs[3:]
-            else:
-                tab = (refs[0], S_tab, base_tab)
-                refs = refs[1:]
+            tab = (refs[0], S_tab, base_tab)
+            refs = refs[1:]
         else:
             tab = None
         if multi:
@@ -1517,6 +1175,7 @@ def build_kernel(scene: Scene, cam: CameraParams, cfg: RenderConfig,
         o0, d0 = spawn(seed, px, py, pid0)
         zero = jnp.zeros_like(px)
         one = jnp.ones_like(px)
+        izero = jnp.zeros_like(px, dtype=jnp.int32)
 
         carry0 = (
             # o0 entries are scalars (pinhole) or per-lane arrays (lens).
@@ -1524,14 +1183,14 @@ def build_kernel(scene: Scene, cam: CameraParams, cfg: RenderConfig,
             d0[0], d0[1], d0[2],
             one, one, one,              # throughput
             zero, zero, zero,           # L accumulator
-            # alive as i32 0/1: Mosaic cannot round-trip i1 vectors through
-            # the while carry (i8->i1 trunci is unsupported).
+            # alive as i32 0/1 (bit 1 = the textbook/sphere-light
+            # suppress-next-pickup flag, see below).
             jnp.where(s0 < s_stop, np.int32(1), np.int32(0)),
-            jnp.zeros_like(px, dtype=jnp.int32),  # depth
+            izero,                      # depth
             s0,                         # sample idx
             pid0,                       # path id
-            jnp.zeros((), jnp.float32),  # extend traces
-            jnp.zeros((), jnp.float32),  # probe traces
+            izero,                      # extend traces of this lane
+            izero,                      # probe traces of this lane
         )
         if mis_est:
             # estimator="mis": + the balance-heuristic pdf carry (the
@@ -1710,7 +1369,7 @@ def build_kernel(scene: Scene, cam: CameraParams, cfg: RenderConfig,
             survive = ~rr_active | (u_rr < p_max)
             inv_p = jnp.where(
                 rr_active & (p_max > 0.0),
-                pl.reciprocal(jnp.where(p_max > 0.0, p_max, 1.0), approx=False),
+                np.float32(1.0) / jnp.where(p_max > 0.0, p_max, 1.0),
                 1.0,
             )
             alive_next = alive & survive
@@ -1732,8 +1391,7 @@ def build_kernel(scene: Scene, cam: CameraParams, cfg: RenderConfig,
             vy = nz * ux - nx * uz
             vz = nx * uy - ny * ux
             # Polynomial sincos (vm.sincos_2pi — shared with every jnp
-            # path so the schedules stay bit-identical): +6% end-to-end
-            # over the transcendental pair on a v5e (PERF.md).
+            # path so the schedules stay bit-identical).
             sr1, cr1 = vm.sincos_2pi(u1)
             if est in ("uniform", "uniform_corrected"):
                 sin_t = jnp.sqrt(u2 * (np.float32(2.0) - u2))
@@ -1792,90 +1450,6 @@ def build_kernel(scene: Scene, cam: CameraParams, cfg: RenderConfig,
                     pos = base > 0.0
                     safe = jnp.where(pos, base, 1.0)
                     return jnp.where(pos, safe**n_exp, 0.0)
-
-            if guided:
-                if guide_primary:
-                    # Primary-vertex lobe: the lane's pixel's precomputed
-                    # lobe, applied ONLY at the first diffuse vertex
-                    # (depth == 1) — deeper bounces scatter unguided
-                    # cosine. Unbiased for any per-lane lobe: the mixture
-                    # pdf below is computed from the SAME decoded mu the
-                    # sample used.
-                    mux, muy, muz, use_g = _oct_decode(g_lobe)
-                    use_g = use_g & (depth == np.int32(1))
-                else:
-                    # Voxel lookup at the hit point (experiment/
-                    # path_guiding.py voxel_id semantics: reference
-                    # 10-unit grid, clamped; the C15 miss point (0,0,0)
-                    # lands in a corner voxel exactly as the jnp path's
-                    # sh.x does).
-                    gix = [None] * 3
-                    for ax, hc in enumerate((hx, hy, hz)):
-                        q = jnp.floor(
-                            (hc - np.float32(G_LO[ax])) / np.float32(10.0)
-                        ).astype(jnp.int32)
-                        gix[ax] = jnp.clip(q, 0, np.int32(G_NVOX[ax] - 1))
-                    vid = (
-                        gix[0] * np.int32(G_NVOX[1]) + gix[1]
-                    ) * np.int32(G_NVOX[2]) + gix[2]
-                    c_hi = vid >> np.int32(7)
-                    c_lo = vid & np.int32(127)
-                    n_chunks = -(-int(np.prod(G_NVOX)) // 128)
-                    gpacked = _gather_vmem_table(
-                        gpk_ref, c_hi, c_lo, n_chunks
-                    )
-                    mux, muy, muz, use_g = _oct_decode(gpacked)
-                is_diff_g = ~(h["is_spec"] | h["is_refr"])
-                beta_eff = jnp.where(
-                    use_g & is_diff_g, g_beta, np.float32(0.0)
-                )
-                # Power-cosine lobe around mu (sample_power_cosine): same
-                # onb_from_w frame construction as the n-frame above.
-                pickm = jnp.abs(mux) > np.float32(0.1)
-                muxr = jnp.where(pickm, muz, 0.0)
-                muyr = jnp.where(pickm, 0.0, -muz)
-                muzr = jnp.where(pickm, -mux, muy)
-                # Decoded mu is always a finite unit vector (the sentinel
-                # decodes to one too and is masked by beta_eff == 0); the
-                # guards only pin the frame where the lobe is unused.
-                mul2 = muxr * muxr + muyr * muyr + muzr * muzr
-                inv_ml = jax.lax.rsqrt(jnp.where(use_g, mul2, 1.0))
-                mux_u, muy_u, muz_u = muxr * inv_ml, muyr * inv_ml, muzr * inv_ml
-                mvx = muy * muz_u - muz * muy_u
-                mvy = muz * mux_u - mux * muz_u
-                mvz = mux * muy_u - muy * mux_u
-                wzm = u2 ** g_inv_k1
-                sin_tm = jnp.sqrt(
-                    jnp.maximum(np.float32(1.0) - wzm * wzm, 0.0)
-                )
-                lbxr = mux_u * (cr1 * sin_tm) + mvx * (sr1 * sin_tm) + mux * wzm
-                lbyr = muy_u * (cr1 * sin_tm) + mvy * (sr1 * sin_tm) + muy * wzm
-                lbzr = muz_u * (cr1 * sin_tm) + mvz * (sr1 * sin_tm) + muz * wzm
-                lbl2 = lbxr * lbxr + lbyr * lbyr + lbzr * lbzr
-                inv_ll = jax.lax.rsqrt(jnp.where(use_g, lbl2, 1.0))
-                lbx, lby, lbz = lbxr * inv_ll, lbyr * inv_ll, lbzr * inv_ll
-                u_gcoin = uni(seed, pid, ctr + _u32c(rng.P_MIX_COIN))
-                take_l = u_gcoin < beta_eff
-                gdx = jnp.where(take_l, lbx, scx)
-                gdy = jnp.where(take_l, lby, scy)
-                gdz = jnp.where(take_l, lbz, scz)
-                cos_n_g = gdx * nx + gdy * ny + gdz * nz
-                cos_mu_g = gdx * mux + gdy * muy + gdz * muz
-                pdf_lobe = g_norm * _pow_const(
-                    jnp.maximum(cos_mu_g, 0.0), g_k
-                )
-                pdf_cos = jnp.maximum(cos_n_g, 0.0) * np.float32(1.0 / math.pi)
-                pdf_mix = (
-                    beta_eff * pdf_lobe
-                    + (np.float32(1.0) - beta_eff) * pdf_cos
-                )
-                ok_g = (pdf_mix > np.float32(1e-9)) & (cos_n_g > 0.0)
-                w_g = jnp.where(
-                    ok_g, pdf_cos / jnp.where(ok_g, pdf_mix, 1.0), 0.0
-                )
-                # Spec/refr lanes scatter unguided (their branches override
-                # direction and weight below and always carry).
-                ok_g = ok_g | ~is_diff_g
 
             if est in ("nee", "mixture", "nee_textbook", "mis"):
                 # Light-plane sample + visibility probe. nee/mixture: C13
@@ -2103,21 +1677,6 @@ def build_kernel(scene: Scene, cam: CameraParams, cfg: RenderConfig,
                     p_b_s = jnp.maximum(dot_sn, 0.0) * np.float32(
                         1.0 / math.pi
                     )
-                    if guided:
-                        # Guided continuation: the competing density is
-                        # the MIXTURE pdf at the shadow direction
-                        # (beta_eff = 0 on unguided voxels reduces this
-                        # to the cosine pdf bit-for-bit).
-                        cos_mu_l = (
-                            ldx * mux + ldy * muy + ldz * muz
-                        )
-                        p_lobe_l = g_norm * _pow_const(
-                            jnp.maximum(cos_mu_l, 0.0), g_k
-                        )
-                        p_b_s = (
-                            beta_eff * p_lobe_l
-                            + (np.float32(1.0) - beta_eff) * p_b_s
-                        )
                     if has_glos:
                         # GLOS: the competing continuation density is the
                         # Phong-lobe pdf (sampling.phong_pdf).
@@ -2148,12 +1707,8 @@ def build_kernel(scene: Scene, cam: CameraParams, cfg: RenderConfig,
                     Lr = Lr + gate * tr_ * h["alb"][0] * e_l_use[0]
                     Lg = Lg + gate * tg * h["alb"][1] * e_l_use[1]
                     Lb = Lb + gate * tb * h["alb"][2] * e_l_use[2]
-                    if guided:
-                        ndx, ndy, ndz = gdx, gdy, gdz
-                        wgt = w_g
-                    else:
-                        ndx, ndy, ndz = scx, scy, scz
-                        wgt = one
+                    ndx, ndy, ndz = scx, scy, scz
+                    wgt = one
                     probes = jnp.where(
                         alive & is_diff, np.float32(1.0), np.float32(0.0)
                     )
@@ -2180,10 +1735,7 @@ def build_kernel(scene: Scene, cam: CameraParams, cfg: RenderConfig,
                     if multi:
                         cont_off = cont_off & take
             else:
-                if guided:
-                    ndx, ndy, ndz = gdx, gdy, gdz
-                    wgt = w_g
-                elif est == "uniform_corrected":
+                if est == "uniform_corrected":
                     ndx, ndy, ndz = scx, scy, scz
                     wgt = np.float32(2.0) * jnp.maximum(
                         ndx * nx + ndy * ny + ndz * nz, 0.0
@@ -2260,25 +1812,19 @@ def build_kernel(scene: Scene, cam: CameraParams, cfg: RenderConfig,
             tg_n = tg * h["alb"][1] * f_scale
             tb_n = tb * h["alb"][2] * f_scale
 
-            nex = nex + jnp.sum(alive_f)
-            if textbook or mis_est:
-                # Shadow rays fire for every live diffuse lane regardless
-                # of the RR outcome (probes already carries that mask).
-                npr = npr + jnp.sum(probes)
-            else:
-                npr = npr + jnp.sum(
-                    probes
-                    * jnp.where(alive_next, np.float32(1.0), np.float32(0.0))
-                )
+            nex = nex + jnp.where(alive, np.int32(1), np.int32(0))
+            fired = probes > 0.0
+            if not (textbook or mis_est):
+                # Shadow rays of the C13 estimators count only on lanes
+                # that continue; textbook/mis shadow rays fire for every
+                # live diffuse lane regardless of the RR outcome (probes
+                # already carries that mask).
+                fired = fired & alive_next
+            npr = npr + jnp.where(fired, np.int32(1), np.int32(0))
 
             # Per-path max_bounces truncation (identical to the scan/regen
             # jnp schedules — see path_trace_regen).
             alive_next = alive_next & (depth < max_bounces)
-            if guided:
-                # Guided-mixture samples below the surface carry zero BRDF:
-                # the lane dies (weight 0) and regenerates — unbiased, see
-                # path_guiding._guided_diffuse.
-                alive_next = alive_next & ok_g
 
             if fold:
                 # NEE continuation fold (see build_kernel): the next bounce
@@ -2305,7 +1851,7 @@ def build_kernel(scene: Scene, cam: CameraParams, cfg: RenderConfig,
                 Lr = Lr + scf * tr_n * e_fold[0]
                 Lg = Lg + scf * tg_n * e_fold[1]
                 Lb = Lb + scf * tb_n * e_fold[2]
-                nex = nex + jnp.sum(scf)
+                nex = nex + jnp.where(sc, np.int32(1), np.int32(0))
                 alive_next = alive_next & ~sc
 
             # Regeneration: dead lanes with budget left respawn (C4 jitter).
@@ -2366,12 +1912,6 @@ def build_kernel(scene: Scene, cam: CameraParams, cfg: RenderConfig,
                 is_diff_m = ~(h["is_spec"] | h["is_refr"])
                 cos_c = ndx * nx + ndy * ny + ndz * nz
                 pdf_cont = jnp.maximum(cos_c, 0.0) * np.float32(1.0 / math.pi)
-                if guided:
-                    # The continuation was drawn from the guided mixture;
-                    # its density at the chosen direction is pdf_mix
-                    # (already computed in the guided block — equals the
-                    # cosine pdf wherever beta_eff == 0).
-                    pdf_cont = jnp.where(is_diff_m, pdf_mix, pdf_cont)
                 if has_glos:
                     # GLOS: the continuation is the Phong lobe — carry its
                     # pdf at the sampled direction (sampling.phong_pdf).
@@ -2399,17 +1939,11 @@ def build_kernel(scene: Scene, cam: CameraParams, cfg: RenderConfig,
         lr_ref[...] = out[9]
         lg_ref[...] = out[10]
         lb_ref[...] = out[11]
-        # TPU grid steps run sequentially on a core: accumulate the
-        # [extend, probe] trace counters across tiles in the (1,2) SMEM row.
-        @pl.when(pl.program_id(0) == 0)
-        def _():
-            traces_ref[0, 0] = out[16]
-            traces_ref[0, 1] = out[17]
-
-        @pl.when(pl.program_id(0) != 0)
-        def _():
-            traces_ref[0, 0] = traces_ref[0, 0] + out[16]
-            traces_ref[0, 1] = traces_ref[0, 1] + out[17]
+        # This block's [extend, probe] trace counts: blocks run in
+        # parallel, so each writes its own row and the host sums the rows
+        # (trace_totals).
+        traces_ref[0, 0] = jnp.sum(out[16])
+        traces_ref[0, 1] = jnp.sum(out[17])
 
     return kernel
 
@@ -2446,25 +1980,6 @@ def _table_compatible(scene: Scene) -> bool:
     return True
 
 
-def _sphere_mode(scene: Scene, cfg: RenderConfig) -> str:
-    """Resolve cfg.sphere_table to "off" | "table" | "cluster".
-
-    "cluster" = the table scan with bounding-sphere tile pruning
-    (cluster_scene_spheres/_cluster_scan; measured ladder in PERF.md)."""
-    S = int(np.asarray(scene.spheres.radius).shape[0])
-    mode = getattr(cfg, "sphere_table", "auto")
-    if mode in ("cluster", "cluster_scratch"):
-        if S == 0:
-            return "off"
-        if not _table_compatible(scene):
-            raise ValueError(
-                f"sphere_table={mode!r} needs a table-compatible scene "
-                "(no GLOS/light spheres, at least one unrolled object)"
-            )
-        return mode
-    return "table" if _use_sphere_table(scene, cfg) else "off"
-
-
 def _use_sphere_table(scene: Scene, cfg: RenderConfig) -> bool:
     """Resolve cfg.sphere_table ("auto"/"on"/"off") for this scene.
 
@@ -2479,12 +1994,8 @@ def _use_sphere_table(scene: Scene, cfg: RenderConfig) -> bool:
         return S > 0
     if mode == "off":
         return False
-    if mode == "cluster":
-        return S > 0
     if mode != "auto":
-        raise ValueError(
-            f"sphere_table must be auto/on/off/cluster, got {mode!r}"
-        )
+        raise ValueError(f"sphere_table must be auto/on/off, got {mode!r}")
     from ..config import SPHERE_TABLE_AUTO_MIN
 
     return S >= SPHERE_TABLE_AUTO_MIN and _table_compatible(scene)
@@ -2515,9 +2026,8 @@ def _geom_hash_structure(scene: Scene, cam: CameraParams) -> str:
 
 
 def _sphere_tables(scene: Scene):
-    """Runtime SMEM inputs for the table kernel, all FLAT 1-D (SMEM pads
-    the trailing dim to 128 lanes — 2-D scalar tables cost 128x their
-    bytes, see _FlatRows): (alb (K*3,) f32, emi (K*3,) f32 for the
+    """Runtime inputs for the table kernel, all FLAT 1-D (see _FlatRows):
+    (alb (K*3,) f32, emi (K*3,) f32 for the
     unrolled objects' runtime materials, packed (S*TAB_STRIDE,) f32
     per-sphere rows [cx,cy,cz,r, alb rgb, emi rgb, refl, pad])."""
     from ..scene.types import object_arrays
@@ -2543,8 +2053,107 @@ def _sphere_tables(scene: Scene):
     )
 
 
-def render_pallas(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
-                  interpret: bool = False):
+# ---------------------------------------------------------------------------
+# Launch: lane layout, the forward pallas_call, trace totals.
+# ---------------------------------------------------------------------------
+
+# Lanes a launch aims for (lane_groups splits a pixel's samples over
+# several lanes only below it): about one lane per thread an H100 keeps
+# resident (132 SMs x 2048 threads = 2^18.04). The sweep in PERF.md found
+# no value best at every frame size, so it stays at this count.
+LANE_TARGET = 1 << 18
+
+
+def lane_layout(n_pix: int, n_s: int, groups: int = 0):
+    """(g lanes per pixel, per-lane sample count, live lanes, blocks)."""
+    from ..integrator.wavefront import lane_groups
+
+    g = lane_groups(n_pix, n_s, LANE_TARGET, groups)
+    n_lanes = n_pix * g
+    return g, n_s // g, n_lanes, -(-n_lanes // route.block_lanes())
+
+
+def pad_lanes(x, n_blocks: int):
+    """A per-lane plane zero-padded to whole blocks."""
+    return jnp.pad(x, (0, n_blocks * route.block_lanes() - x.shape[0]))
+
+
+def lane_planes(cfg: RenderConfig, pix, s_start, s_stop, n_blocks: int):
+    """The five per-lane input planes (px, py, path-id base, s_start,
+    s_stop), padded to whole blocks. Padding lanes get s_start == s_stop ==
+    0 and are born dead."""
+    px = (pix % jnp.uint32(cfg.width)).astype(jnp.float32)
+    py = (pix // jnp.uint32(cfg.width)).astype(jnp.float32)
+    return tuple(pad_lanes(x, n_blocks) for x in (
+        px, py, pix * jnp.uint32(cfg.spp),
+        s_start.astype(jnp.uint32), s_stop.astype(jnp.uint32),
+    ))
+
+
+def frame_lanes(cfg: RenderConfig, n_pix: int, g: int, per: int,
+                n_blocks: int, pix0=0, samp0=0):
+    """Lanes for pixels [pix0, pix0 + n_pix), g lanes per pixel, each over
+    ``per`` consecutive samples from samp0 (pix0/samp0 may be traced).
+    Returns (pixel of each live lane, the five padded lane planes)."""
+    pix = pix0 + jnp.repeat(jnp.arange(n_pix, dtype=jnp.uint32), g)
+    s_start = samp0 + jnp.tile(
+        jnp.arange(g, dtype=jnp.uint32) * jnp.uint32(per), n_pix
+    )
+    return pix, lane_planes(cfg, pix, s_start, s_start + jnp.uint32(per),
+                            n_blocks)
+
+
+def lane_spec():
+    """BlockSpec of a per-lane plane: block i owns lanes [i*B, (i+1)*B)."""
+    return pl.BlockSpec((route.block_lanes(),), lambda i: (i,))
+
+
+def launch_forward(kernel, n_blocks: int, seed, tables, lanes):
+    """One forward-kernel launch. The seed and runtime tables are whole
+    arrays every block reads (global memory on the GPU, scalar loads).
+    Returns (per-lane radiance (n, 3) over the padded lanes, per-block
+    (n_blocks, 2) i32 [extend, probe] trace counts)."""
+    n = n_blocks * route.block_lanes()
+    plane = jax.ShapeDtypeStruct((n,), jnp.float32)
+    lr, lg, lb, traces = pl.pallas_call(
+        kernel,
+        grid=(n_blocks,),
+        in_specs=[pl.BlockSpec()] * (1 + len(tables)) + [lane_spec()] * 5,
+        out_specs=[lane_spec()] * 3 + [
+            pl.BlockSpec((1, 2), lambda i: (i, 0))
+        ],
+        out_shape=[plane] * 3 + [
+            jax.ShapeDtypeStruct((n_blocks, 2), jnp.int32)
+        ],
+        name="spt_forward",
+        **route.pallas_call_kwargs(),
+    )(jnp.asarray(seed, jnp.uint32).reshape(1), *tables, *lanes)
+    return jnp.stack([lr, lg, lb], axis=-1), traces
+
+
+def trace_totals(per_block) -> np.ndarray:
+    """Exact [extend, probe] totals (int64, on the host) from the per-block
+    (n_blocks, 2) i32 trace rows the kernel launchers return (a (2,) pair
+    passes through). A block's count fits i32; the north-star frame's
+    total (~1.5e9) is near the i32 limit and far beyond f32's exact range,
+    so the rows are summed here, by callers that report trace counts, and
+    not on the device."""
+    return np.asarray(per_block, np.int64).reshape(-1, 2).sum(axis=0)
+
+
+def _cache_key(*parts):
+    return parts + (route.platform(), route.block_lanes(), _fold_enabled())
+
+
+def _scene_inputs(scene: Scene, cam: CameraParams, cfg: RenderConfig):
+    """(use the sphere table?, build-cache hash, runtime tables)."""
+    use_tab = _use_sphere_table(scene, cfg)
+    if use_tab:
+        return True, _geom_hash_structure(scene, cam), _sphere_tables(scene)
+    return False, _geom_hash(scene, cam), ()
+
+
+def render_pallas(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed):
     """Full render via the Pallas megakernel.
 
     Scene/camera/config are compile-time constants of the kernel; the jitted
@@ -2552,775 +2161,119 @@ def render_pallas(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
     use the differentiable kernel pair in ops/megakernel_grad.py or the jnp
     wavefront for scene optimization loops).
 
-    Returns ((h, w, 3) radiance SUM over spp, traces (2,) [extend, probe]).
-    Divide by spp and clamp (film.finalize) for the final image."""
-    return render_pallas_span(
-        scene, cam, cfg, seed, 0, cfg.spp, interpret
-    )
+    Returns ((h, w, 3) radiance SUM over spp, per-block (n_blocks, 2) i32
+    [extend, probe] trace rows; trace_totals sums them). Divide by spp and
+    clamp (film.finalize) for the final image."""
+    return render_pallas_span(scene, cam, cfg, seed, 0, cfg.spp)
 
 
 def render_pallas_span(scene: Scene, cam: CameraParams, cfg: RenderConfig,
-                       seed, s0, n_s: int, interpret: bool = False):
+                       seed, s0, n_s: int):
     """Megakernel render of sample indices [s0, s0+n_s) for every pixel —
     the checkpoint-span unit (utils/checkpoint.py). s0 is a TRACED input
     (it only shifts the per-lane s_start/s_stop planes), so a checkpoint
     loop compiles once per span size.
 
-    Returns ((h, w, 3) radiance SUM over the span, traces (2,))."""
-    # Mosaic needs a real TPU; anywhere else (CPU tests) use the
-    # interpreter automatically.
-    if not interpret and jax.devices()[0].platform != "tpu":
-        interpret = True
-
-    mode = _sphere_mode(scene, cfg)
-    use_tab = mode != "off"
-    ghash = (_geom_hash_structure(scene, cam) if use_tab
-             else _geom_hash(scene, cam))
-    key = (ghash, mode, cfg, int(n_s), interpret, _fold_enabled())
-    fn = _CACHE.get(key)
-    if fn is None:
-        fn = _build_render(scene, cam, cfg, int(n_s), interpret, use_tab,
-                           use_cluster=mode
-                           if mode in ("cluster", "cluster_scratch")
-                           else False)
-        _CACHE[key] = fn
-    return fn(scene, jnp.asarray(seed, jnp.uint32),
-              jnp.asarray(s0, jnp.uint32))
+    Returns ((h, w, 3) radiance SUM over the span, per-block trace rows)."""
+    use_tab, ghash, tables = _scene_inputs(scene, cam, cfg)
+    key = _cache_key(ghash, use_tab, cfg, int(n_s), "span")
+    run = _CACHE.get(key)
+    if run is None:
+        run = _CACHE[key] = _build_render(scene, cam, cfg, int(n_s), use_tab)
+    img, per_block = run(jnp.asarray(seed, jnp.uint32),
+                         jnp.asarray(s0, jnp.uint32), *tables)
+    return img, per_block
 
 
 def _build_render(scene: Scene, cam: CameraParams, cfg: RenderConfig,
-                  n_s: int, interpret: bool, use_tab: bool = False,
-                  use_cluster=False):
-    """use_cluster: False | "cluster" (lax.cond pruning) |
-    "cluster_scratch" (pl.when over VMEM scratch — see
-    _cluster_scan_scratch)."""
-    from ..integrator.wavefront import lane_groups
-
+                  n_s: int, use_tab: bool):
     n_pix = cfg.width * cfg.height
-    # Target ~2^18 lanes: fewer lanes with bigger per-lane sample budgets
-    # beat more lanes with small budgets (the tile's while loop runs to its
-    # slowest lane; long budgets amortize that tail — measured 813 vs 707
-    # Mrays/s for g=1 vs g=8 at 512x512x64spp, PERF.md).
-    g = lane_groups(n_pix, n_s, 1 << 18, cfg.regen_groups)
-    per = n_s // g
-    n_lanes = n_pix * g
-    pad = (-n_lanes) % TILE
-    n_total = n_lanes + pad
-    n_tiles = n_total // TILE
-
-    kernel = build_kernel(
-        scene, cam, cfg, mat_refs=use_tab, sphere_tab=use_tab,
-        cluster_tab=("scratch" if use_cluster == "cluster_scratch"
-                     else bool(use_cluster)),
-    )
-    block = pl.BlockSpec(
-        (TILE_ROWS, 128), lambda i: (i, 0), memory_space=pltpu.VMEM
-    )
-    smem = pl.BlockSpec(memory_space=pltpu.SMEM)
-    n_tab_refs = (5 if use_cluster else 3) if use_tab else 0
-    scratch_shapes = []
-    if use_cluster == "cluster_scratch":
-        scratch_shapes = (
-            [pltpu.VMEM((TILE_ROWS, 128), jnp.float32)] * _SCRATCH_F32
-            + [pltpu.VMEM((TILE_ROWS, 128), jnp.int32)] * _SCRATCH_I32
-        )
-    if use_cluster:
-        # Cluster pruning only fires when a TILE's rays are spatially
-        # coherent: the default lane order maps a tile to several full
-        # image ROWS, which always contain a ray toward every cluster.
-        # Swizzle lanes into 64x64 pixel blocks (block-major) so primary
-        # packets share frusta. Per-sample radiance is pixel-keyed
-        # (path_id = pixel*spp + s), so the image is IDENTICAL — only
-        # which lane computes which pixel changes.
-        import numpy as _np
-
-        _xs = _np.arange(n_pix) % cfg.width
-        _ys = _np.arange(n_pix) // cfg.width
-        _B = 64
-        _nbx = -(-cfg.width // _B)
-        _key = (
-            ((_ys // _B) * _nbx + (_xs // _B)) * (_B * _B)
-            + (_ys % _B) * _B + (_xs % _B)
-        )
-        _order = _np.argsort(_key, kind="stable").astype(_np.uint32)
-        pix_of_lane = jnp.asarray(_order)         # lane-group -> pixel
-    else:
-        pix_of_lane = None
+    g, per, n_lanes, n_blocks = lane_layout(n_pix, n_s, cfg.regen_groups)
+    kernel = build_kernel(scene, cam, cfg, mat_refs=use_tab,
+                          sphere_tab=use_tab)
 
     @jax.jit
     def run(seed, s0, *tables):
-        if pix_of_lane is not None:
-            lane_pix = pix_of_lane
-        else:
-            lane_pix = jnp.arange(n_pix, dtype=jnp.uint32)
-        pix = jnp.repeat(lane_pix, g)
-        px = (pix % jnp.uint32(cfg.width)).astype(jnp.float32)
-        py = (pix // jnp.uint32(cfg.width)).astype(jnp.float32)
-        pid_base = pix * jnp.uint32(cfg.spp)
-        s_start = s0 + jnp.tile(
-            jnp.arange(g, dtype=jnp.uint32) * jnp.uint32(per), n_pix
-        )
-        s_stop = s_start + jnp.uint32(per)
+        _, lanes = frame_lanes(cfg, n_pix, g, per, n_blocks, samp0=s0)
+        L, traces = launch_forward(kernel, n_blocks, seed, tables, lanes)
+        img = L[:n_lanes].reshape(n_pix, g, 3).sum(axis=1)
+        return img.reshape(cfg.height, cfg.width, 3), traces
 
-        def padto(x, fill):
-            return jnp.pad(x, (0, pad), constant_values=fill).reshape(
-                n_tiles * TILE_ROWS, 128
-            )
-
-        lr, lg, lb, traces = pl.pallas_call(
-            kernel,
-            grid=(n_tiles,),
-            in_specs=[
-                smem,  # seed (1,)
-                # Table mode: flat alb/emi material tables + the
-                # packed per-sphere rows (see _sphere_tables)
-                # (+ cluster bounds/meta when pruning is on).
-                *([smem] * n_tab_refs),
-                block, block, block, block, block,
-            ],
-            out_specs=[
-                block, block, block,
-                pl.BlockSpec((1, 2), lambda i: (0, 0),
-                             memory_space=pltpu.SMEM),
-            ],
-            out_shape=[
-                jax.ShapeDtypeStruct((n_tiles * TILE_ROWS, 128), jnp.float32),
-                jax.ShapeDtypeStruct((n_tiles * TILE_ROWS, 128), jnp.float32),
-                jax.ShapeDtypeStruct((n_tiles * TILE_ROWS, 128), jnp.float32),
-                jax.ShapeDtypeStruct((1, 2), jnp.float32),
-            ],
-            scratch_shapes=scratch_shapes,
-            interpret=interpret,
-        )(
-            seed.reshape(1),
-            *tables,
-            padto(px, 0.0), padto(py, 0.0), padto(pid_base, 0),
-            # Padding lanes get s_start == s_stop == 0 => born dead.
-            padto(s_start, 0), padto(s_stop, 0),
-        )
-        L = jnp.stack(
-            [lr.reshape(-1)[:n_lanes], lg.reshape(-1)[:n_lanes],
-             lb.reshape(-1)[:n_lanes]],
-            axis=-1,
-        )
-        sums = L.reshape(n_pix, g, 3).sum(axis=1)
-        if pix_of_lane is not None:
-            sums = jnp.zeros_like(sums).at[pix_of_lane].set(sums)
-        img = sums.reshape(cfg.height, cfg.width, 3)
-        return img, traces[0]
-
-    def fn(scene_now: Scene, seed, s0):
-        if use_cluster:
-            scene_p, bflat, mflat = cluster_scene_spheres(scene_now)
-            return run(seed, s0, *_sphere_tables(scene_p), bflat, mflat)
-        if use_tab:
-            return run(seed, s0, *_sphere_tables(scene_now))
-        return run(seed, s0)
-
-    return fn
+    return run
 
 
 def render_pallas_budgets(scene: Scene, cam: CameraParams,
-                          cfg: RenderConfig, seed, s_start, s_stop,
-                          interpret: bool = False):
+                          cfg: RenderConfig, seed, s_start, s_stop):
     """Megakernel render with PER-PIXEL sample budgets: pixel i renders
     sample indices [s_start[i], s_stop[i]) — the adaptive-sampling wave
     unit (utils/adaptive.py). One lane per pixel; pixels with
-    s_start == s_stop are born dead and cost only their tile slot.
+    s_start == s_stop are born dead and cost only their lane slot.
 
     s_start/s_stop are TRACED (n_pix,) uint32 inputs (the compiled
     executable is reused across waves); cfg.spp remains the path-id
     packing stride, so per-sample radiance is bit-identical to every
     other schedule at equal (pixel, sample).
 
-    Returns ((n_pix, 3) radiance SUM over each pixel's span, traces (2,))."""
-    if not interpret and jax.devices()[0].platform != "tpu":
-        interpret = True
-
-    use_tab = _use_sphere_table(scene, cfg)
-    ghash = (_geom_hash_structure(scene, cam) if use_tab
-             else _geom_hash(scene, cam))
-    key = (ghash, use_tab, cfg, "budgets", interpret, _fold_enabled())
-    fn = _CACHE.get(key)
-    if fn is None:
-        fn = _build_render_budgets(scene, cam, cfg, interpret, use_tab)
-        _CACHE[key] = fn
-    return fn(
-        scene,
+    Returns ((n_pix, 3) radiance SUM over each pixel's span, per-block
+    trace rows)."""
+    use_tab, ghash, tables = _scene_inputs(scene, cam, cfg)
+    key = _cache_key(ghash, use_tab, cfg, "budgets")
+    run = _CACHE.get(key)
+    if run is None:
+        run = _CACHE[key] = _build_render_budgets(scene, cam, cfg, use_tab)
+    L, per_block = run(
         jnp.asarray(seed, jnp.uint32),
         jnp.asarray(s_start, jnp.uint32),
         jnp.asarray(s_stop, jnp.uint32),
+        *tables,
     )
+    return L, per_block
 
 
 def _build_render_budgets(scene: Scene, cam: CameraParams,
-                          cfg: RenderConfig, interpret: bool,
-                          use_tab: bool = False):
+                          cfg: RenderConfig, use_tab: bool):
     n_pix = cfg.width * cfg.height
-    pad = (-n_pix) % TILE
-    n_total = n_pix + pad
-    n_tiles = n_total // TILE
-
+    n_blocks = -(-n_pix // route.block_lanes())
     kernel = build_kernel(scene, cam, cfg, mat_refs=use_tab,
                           sphere_tab=use_tab)
-    block = pl.BlockSpec(
-        (TILE_ROWS, 128), lambda i: (i, 0), memory_space=pltpu.VMEM
-    )
-    smem = pl.BlockSpec(memory_space=pltpu.SMEM)
 
     @jax.jit
     def run(seed, s_start, s_stop, *tables):
         pix = jnp.arange(n_pix, dtype=jnp.uint32)
-        px = (pix % jnp.uint32(cfg.width)).astype(jnp.float32)
-        py = (pix // jnp.uint32(cfg.width)).astype(jnp.float32)
-        pid_base = pix * jnp.uint32(cfg.spp)
-
-        def padto(x, fill):
-            return jnp.pad(x, (0, pad), constant_values=fill).reshape(
-                n_tiles * TILE_ROWS, 128
-            )
-
-        lr, lg, lb, traces = pl.pallas_call(
-            kernel,
-            grid=(n_tiles,),
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-                *([smem, smem, smem] if use_tab else []),
-                block, block, block, block, block,
-            ],
-            out_specs=[
-                block, block, block,
-                pl.BlockSpec((1, 2), lambda i: (0, 0),
-                             memory_space=pltpu.SMEM),
-            ],
-            out_shape=[
-                jax.ShapeDtypeStruct((n_tiles * TILE_ROWS, 128), jnp.float32),
-                jax.ShapeDtypeStruct((n_tiles * TILE_ROWS, 128), jnp.float32),
-                jax.ShapeDtypeStruct((n_tiles * TILE_ROWS, 128), jnp.float32),
-                jax.ShapeDtypeStruct((1, 2), jnp.float32),
-            ],
-            interpret=interpret,
-        )(
-            seed.reshape(1),
-            *tables,
-            padto(px, 0.0), padto(py, 0.0), padto(pid_base, 0),
-            # Padding lanes: s_start == s_stop == 0 => born dead.
-            padto(s_start.astype(jnp.uint32), 0),
-            padto(s_stop.astype(jnp.uint32), 0),
-        )
-        L = jnp.stack(
-            [lr.reshape(-1)[:n_pix], lg.reshape(-1)[:n_pix],
-             lb.reshape(-1)[:n_pix]],
-            axis=-1,
-        )
-        return L, traces[0]
-
-    def fn(scene_now: Scene, seed, s_start, s_stop):
-        if use_tab:
-            return run(seed, s_start, s_stop, *_sphere_tables(scene_now))
-        return run(seed, s_start, s_stop)
-
-    return fn
-
-
-def pack_guide_entries(guide) -> "np.ndarray":
-    """(mu (V,3), use (V,)) -> per-voxel packed int32 lobes (V,): the
-    octahedral two-int16 code of pack_guide_planes, without the VMEM
-    plane layout (the per-LANE primary-lobe path indexes these per
-    pixel)."""
-    mu = np.asarray(guide[0], np.float64)
-    use = np.asarray(guide[1]).astype(bool)
-    n = np.linalg.norm(mu, axis=1)
-    n = np.where(n > 0, n, 1.0)
-    m = mu / n[:, None]
-    denom = np.abs(m).sum(axis=1)
-    denom = np.where(denom > 0, denom, 1.0)
-    u = m[:, 0] / denom
-    w = m[:, 1] / denom
-    lower = m[:, 2] < 0
-    sgn = lambda x: np.where(x >= 0, 1.0, -1.0)
-    uf = np.where(lower, (1.0 - np.abs(w)) * sgn(u), u)
-    wf = np.where(lower, (1.0 - np.abs(u)) * sgn(w), w)
-    iu = np.clip(np.rint(uf * 32767.0), -32767, 32767).astype(np.int64)
-    iv = np.clip(np.rint(wf * 32767.0), -32767, 32767).astype(np.int64)
-    packed = (iu & 0xFFFF) | ((iv & 0xFFFF) << 16)  # uint32 bit pattern
-    packed = np.where(packed >= 2 ** 31, packed - 2 ** 32, packed)
-    return np.where(use, packed, int(GUIDE_SENTINEL)).astype(np.int32)
-
-
-def pack_guide_planes(guide):
-    """(mu (V,3), use (V,)) from path_guiding.guide_lobes -> ONE
-    (rows, 128) int32 VMEM plane, entry i at (i >> 7, i & 127), rows
-    padded to a multiple of 8 sublanes with GUIDE_SENTINEL.
-
-    Each entry is the lobe direction's octahedral chart point quantized to
-    two int16 in [-32767, 32767] (low 16 = u, high 16 = v); unguided
-    voxels (and padding) hold GUIDE_SENTINEL, which no real entry can
-    pattern to. One int32 gather per bounce replaces three f32 gathers —
-    see _gather_vmem_table for why that dominates the guiding cost. The
-    quantization is ~2e-5 rad of lobe aim and introduces NO bias: the
-    kernel's mixture pdf is computed from the decoded mu (_oct_decode),
-    which dequantize_guide exposes for the jnp parity path."""
-    packed = pack_guide_entries(guide)
-    v = packed.shape[0]
-    n_chunks = -(-v // 128)
-    rows = -(-n_chunks // 8) * 8
-    buf = np.full((rows * 128,), GUIDE_SENTINEL, np.int32)
-    buf[:v] = packed
-    return buf.reshape(rows, 128)
-
-
-@jax.jit
-def _dequantize_guide_plane(plane):
-    mux, muy, muz, use = _oct_decode(plane.reshape(-1))
-    return jnp.stack([mux, muy, muz], axis=-1), use
-
-
-def dequantize_guide(guide):
-    """The effective (mu (V,3) unit, use (V,)) table the guided kernel
-    sees after oct quantization — run the jnp renderer on THIS to compare
-    against render_pallas_guided at float precision (the decode is the
-    same _oct_decode expression the kernel executes)."""
-    v = np.asarray(guide[0]).shape[0]
-    plane = pack_guide_planes(guide)
-    mu, use = _dequantize_guide_plane(jnp.asarray(plane))
-    return mu[:v], use[:v]
-
-
-def render_pallas_guided(scene: Scene, cam: CameraParams, cfg: RenderConfig,
-                         seed, guide, beta: float = 0.5, k: float = 8.0,
-                         interpret: bool = False, s0=0,
-                         n_s: int | None = None):
-    """Guided megakernel render (experiment/path_guiding.py semantics at
-    chip speed): the voxel lobe table rides in VMEM and every diffuse
-    bounce importance-samples the defensive mixture in-register.
-
-    guide = (mu (V,3), use (V,)) from path_guiding.guide_lobes — a RUNTIME
-    input (re-rendering with an updated table does NOT recompile); beta/k
-    are baked. The table is oct-quantized on upload (pack_guide_planes) —
-    unbiased for any table, dequantize_guide gives the effective lobes.
-    cfg.estimator must be "cosine", "nee_textbook", or "mis".
-
-    s0/n_s render the sample span [s0, s0+n_s) only (checkpoint/preview
-    spans, utils/checkpoint.py; n_s defaults to cfg.spp, s0 is traced).
-
-    Returns ((h, w, 3) radiance SUM over the span, traces (2,) [extend,
-    probe])."""
-    if not interpret and jax.devices()[0].platform != "tpu":
-        interpret = True
-    if _use_sphere_table(scene, cfg):
-        raise ValueError(
-            "the guided megakernel does not support sphere_table mode yet; "
-            "pass sphere_table='off' (the scene will be fully unrolled — "
-            "practical below ~100 spheres) or drop --guided"
-        )
-    n_s = cfg.spp if n_s is None else int(n_s)
-    plane = pack_guide_planes(guide)
-    key = (
-        _geom_hash(scene, cam), cfg, n_s, float(beta), float(k),
-        plane.shape, interpret, "guided",
-    )
-    fn = _CACHE.get(key)
-    if fn is None:
-        fn = _build_render_guided(
-            scene, cam, cfg, float(beta), float(k), plane.shape,
-            interpret, n_s,
-        )
-        _CACHE[key] = fn
-    return fn(jnp.asarray(seed, jnp.uint32), jnp.asarray(s0, jnp.uint32),
-              jnp.asarray(plane))
-
-
-def _build_render_guided(scene: Scene, cam: CameraParams, cfg: RenderConfig,
-                         beta: float, k: float, plane_shape, interpret: bool,
-                         n_s: int | None = None):
-    from ..integrator.wavefront import lane_groups
-
-    n_pix = cfg.width * cfg.height
-    n_s = cfg.spp if n_s is None else int(n_s)
-    g = lane_groups(n_pix, n_s, 1 << 18, cfg.regen_groups)
-    per = n_s // g
-    n_lanes = n_pix * g
-    pad = (-n_lanes) % TILE
-    n_total = n_lanes + pad
-    n_tiles = n_total // TILE
-
-    kernel = build_kernel(scene, cam, cfg, guide_cfg=(beta, k))
-    block = pl.BlockSpec(
-        (TILE_ROWS, 128), lambda i: (i, 0), memory_space=pltpu.VMEM
-    )
-    gblock = pl.BlockSpec(
-        plane_shape, lambda i: (0, 0), memory_space=pltpu.VMEM
-    )
-
-    @jax.jit
-    def run(seed, s0, gpk):
-        pix = jnp.repeat(jnp.arange(n_pix, dtype=jnp.uint32), g)
-        px = (pix % jnp.uint32(cfg.width)).astype(jnp.float32)
-        py = (pix // jnp.uint32(cfg.width)).astype(jnp.float32)
-        pid_base = pix * jnp.uint32(cfg.spp)
-        s_start = s0 + jnp.tile(
-            jnp.arange(g, dtype=jnp.uint32) * jnp.uint32(per), n_pix
-        )
-        s_stop = s_start + jnp.uint32(per)
-
-        def padto(x, fill):
-            return jnp.pad(x, (0, pad), constant_values=fill).reshape(
-                n_tiles * TILE_ROWS, 128
-            )
-
-        lr, lg, lb, traces = pl.pallas_call(
-            kernel,
-            grid=(n_tiles,),
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.SMEM),  # seed (1,)
-                gblock,
-                block, block, block, block, block,
-            ],
-            out_specs=[
-                block, block, block,
-                pl.BlockSpec((1, 2), lambda i: (0, 0),
-                             memory_space=pltpu.SMEM),
-            ],
-            out_shape=[
-                jax.ShapeDtypeStruct((n_tiles * TILE_ROWS, 128), jnp.float32),
-                jax.ShapeDtypeStruct((n_tiles * TILE_ROWS, 128), jnp.float32),
-                jax.ShapeDtypeStruct((n_tiles * TILE_ROWS, 128), jnp.float32),
-                jax.ShapeDtypeStruct((1, 2), jnp.float32),
-            ],
-            interpret=interpret,
-        )(
-            seed.reshape(1),
-            gpk,
-            padto(px, 0.0), padto(py, 0.0), padto(pid_base, 0),
-            padto(s_start, 0), padto(s_stop, 0),
-        )
-        L = jnp.stack(
-            [lr.reshape(-1)[:n_lanes], lg.reshape(-1)[:n_lanes],
-             lb.reshape(-1)[:n_lanes]],
-            axis=-1,
-        )
-        img = L.reshape(n_pix, g, 3).sum(axis=1).reshape(
-            cfg.height, cfg.width, 3
-        )
-        return img, traces[0]
+        lanes = lane_planes(cfg, pix, s_start, s_stop, n_blocks)
+        L, traces = launch_forward(kernel, n_blocks, seed, tables, lanes)
+        return L[:n_pix], traces
 
     return run
-
-
-def pixel_primary_lobes(scene: Scene, cam: CameraParams,
-                        cfg: RenderConfig, guide) -> jnp.ndarray:
-    """Per-PIXEL packed primary-vertex lobes (n_pix,) int32: trace one
-    CENTER ray per pixel (jnp — n_pix rays, microseconds next to a
-    render), find its hit voxel, and look up the trained table's lobe.
-    The center-ray voxel is an approximation of where each jittered
-    sample's first vertex lands — harmless for bias (any per-lane lobe
-    is valid; the kernel's mixture pdf uses the lobe it sampled with),
-    only for guiding aim near geometry edges."""
-    from ..camera.pinhole import primary_rays
-    from ..experiment.path_guiding import voxel_id
-    from ..geometry.intersect import shade_info, trace as _trace
-
-    w, h = cfg.width, cfg.height
-    pix = jnp.arange(w * h, dtype=jnp.int32)
-    px = pix % jnp.int32(w)
-    py = pix // jnp.int32(w)
-    half = jnp.full((w * h,), 0.5, jnp.float32)
-    o, d = primary_rays(cam, w, h, px, py, half, half)
-    hit = _trace(scene, o, d)
-    sh = shade_info(scene, o, d, hit)
-    vids = voxel_id(sh.x)                          # (n_pix,)
-    entries = jnp.asarray(pack_guide_entries(guide))  # (V,)
-    return entries[vids]
-
-
-def render_pallas_guided_primary(scene: Scene, cam: CameraParams,
-                                 cfg: RenderConfig, seed, guide,
-                                 beta: float = 0.5, k: float = 8.0,
-                                 interpret: bool = False, s0=0,
-                                 n_s: int | None = None):
-    """Primary-vertex-guided megakernel render — the gather-free guiding
-    variant (PERF.md round 5): each lane carries its pixel's precomputed
-    lobe as a plain int32 lane plane and importance-samples the
-    defensive mixture ONLY at its first diffuse vertex. Zero in-kernel
-    table reads; deeper bounces are unguided cosine. Unbiased for any
-    lobe assignment (the mixture pdf reweights exactly); an all-sentinel
-    table reproduces the unguided kernel bit-for-bit.
-
-    Returns ((h, w, 3) radiance SUM over the span, traces (2,))."""
-    if not interpret and jax.devices()[0].platform != "tpu":
-        interpret = True
-    if _use_sphere_table(scene, cfg):
-        raise ValueError(
-            "the guided megakernel does not support sphere_table mode; "
-            "pass sphere_table='off' or drop guiding"
-        )
-    n_s = cfg.spp if n_s is None else int(n_s)
-    lobes = pixel_primary_lobes(scene, cam, cfg, guide)
-    key = (
-        _geom_hash(scene, cam), cfg, n_s, float(beta), float(k),
-        interpret, "guided_primary",
-    )
-    fn = _CACHE.get(key)
-    if fn is None:
-        fn = _build_render_guided_primary(
-            scene, cam, cfg, float(beta), float(k), interpret, n_s
-        )
-        _CACHE[key] = fn
-    return fn(jnp.asarray(seed, jnp.uint32), jnp.asarray(s0, jnp.uint32),
-              lobes)
-
-
-def _build_render_guided_primary(scene: Scene, cam: CameraParams,
-                                 cfg: RenderConfig, beta: float, k: float,
-                                 interpret: bool, n_s: int | None = None):
-    from ..integrator.wavefront import lane_groups
-
-    n_pix = cfg.width * cfg.height
-    n_s = cfg.spp if n_s is None else int(n_s)
-    g = lane_groups(n_pix, n_s, 1 << 18, cfg.regen_groups)
-    per = n_s // g
-    n_lanes = n_pix * g
-    pad = (-n_lanes) % TILE
-    n_total = n_lanes + pad
-    n_tiles = n_total // TILE
-
-    kernel = build_kernel(scene, cam, cfg, guide_cfg=(beta, k),
-                          guide_primary=True)
-    block = pl.BlockSpec(
-        (TILE_ROWS, 128), lambda i: (i, 0), memory_space=pltpu.VMEM
-    )
-
-    @jax.jit
-    def run(seed, s0, lobes):
-        pix = jnp.repeat(jnp.arange(n_pix, dtype=jnp.uint32), g)
-        px = (pix % jnp.uint32(cfg.width)).astype(jnp.float32)
-        py = (pix // jnp.uint32(cfg.width)).astype(jnp.float32)
-        pid_base = pix * jnp.uint32(cfg.spp)
-        lane_lobe = jnp.repeat(lobes, g)
-        s_start = s0 + jnp.tile(
-            jnp.arange(g, dtype=jnp.uint32) * jnp.uint32(per), n_pix
-        )
-        s_stop = s_start + jnp.uint32(per)
-
-        def padto(x, fill):
-            return jnp.pad(x, (0, pad), constant_values=fill).reshape(
-                n_tiles * TILE_ROWS, 128
-            )
-
-        lr, lg, lb, traces = pl.pallas_call(
-            kernel,
-            grid=(n_tiles,),
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.SMEM),  # seed (1,)
-                block,  # per-lane packed lobes (int32)
-                block, block, block, block, block,
-            ],
-            out_specs=[
-                block, block, block,
-                pl.BlockSpec((1, 2), lambda i: (0, 0),
-                             memory_space=pltpu.SMEM),
-            ],
-            out_shape=[
-                jax.ShapeDtypeStruct((n_tiles * TILE_ROWS, 128), jnp.float32),
-                jax.ShapeDtypeStruct((n_tiles * TILE_ROWS, 128), jnp.float32),
-                jax.ShapeDtypeStruct((n_tiles * TILE_ROWS, 128), jnp.float32),
-                jax.ShapeDtypeStruct((1, 2), jnp.float32),
-            ],
-            interpret=interpret,
-        )(
-            seed.reshape(1),
-            padto(lane_lobe, GUIDE_SENTINEL),
-            padto(px, 0.0), padto(py, 0.0), padto(pid_base, 0),
-            padto(s_start, 0), padto(s_stop, 0),
-        )
-        L = jnp.stack(
-            [lr.reshape(-1)[:n_lanes], lg.reshape(-1)[:n_lanes],
-             lb.reshape(-1)[:n_lanes]],
-            axis=-1,
-        )
-        img = L.reshape(n_pix, g, 3).sum(axis=1).reshape(
-            cfg.height, cfg.width, 3
-        )
-        return img, traces[0]
-
-    return run
-
-
-def render_pallas_guided_sharded(scene: Scene, cam: CameraParams,
-                                 cfg: RenderConfig, mesh, seed, guide,
-                                 beta: float = 0.5, k: float = 8.0,
-                                 interpret: bool = False,
-                                 s0=0, n_s: int | None = None):
-    """Guided megakernel + device mesh: the packed lobe table replicates
-    on every device (it is a few hundred KB of VMEM) and each device runs
-    the SAME guided kernel over its (pixel-block x sample-range) lanes
-    inside shard_map; per-pixel sums reduce over the dp axis with one
-    psum — the guided analogue of render_pallas_sharded, closing the
-    --guided x --mesh composition cell.
-
-    Returns ((h*w, 3) radiance SUM sharded over sp, traces (2,)
-    psum-reduced)."""
-    if not interpret and jax.devices()[0].platform != "tpu":
-        interpret = True
-    if _use_sphere_table(scene, cfg):
-        raise ValueError(
-            "the guided megakernel does not support sphere_table mode; "
-            "pass sphere_table='off' or drop --guided"
-        )
-    n_s = cfg.spp if n_s is None else int(n_s)
-    plane = pack_guide_planes(guide)
-    key = (
-        _geom_hash(scene, cam), cfg, mesh, n_s, float(beta), float(k),
-        plane.shape, interpret, "guided_sharded",
-    )
-    fn = _CACHE.get(key)
-    if fn is None:
-        fn = _build_render_guided_sharded(
-            scene, cam, cfg, mesh, float(beta), float(k), plane.shape,
-            interpret, n_s,
-        )
-        _CACHE[key] = fn
-    return fn(jnp.asarray(seed, jnp.uint32), jnp.asarray(s0, jnp.uint32),
-              jnp.asarray(plane))
-
-
-def _build_render_guided_sharded(scene: Scene, cam: CameraParams,
-                                 cfg: RenderConfig, mesh, beta: float,
-                                 k: float, plane_shape, interpret: bool,
-                                 n_s: int):
-    from jax.sharding import PartitionSpec as P
-
-    from ..parallel.mesh import AXIS_PIXEL, AXIS_SAMPLE
-
-    n_sp = mesh.shape[AXIS_PIXEL]
-    n_dp = mesh.shape[AXIS_SAMPLE]
-    n_pix = cfg.width * cfg.height
-    if n_pix % n_sp or n_s % n_dp:
-        raise ValueError(f"{n_pix=} % {n_sp=} or {n_s=} % {n_dp=} != 0")
-    n_pix_loc = n_pix // n_sp
-    n_s_loc = n_s // n_dp
-
-    from ..integrator.wavefront import lane_groups
-
-    g = lane_groups(n_pix_loc, n_s_loc, 1 << 18, cfg.regen_groups)
-    per = n_s_loc // g
-    n_lanes = n_pix_loc * g
-    pad = (-n_lanes) % TILE
-    n_tiles = (n_lanes + pad) // TILE
-
-    kernel = build_kernel(scene, cam, cfg, guide_cfg=(beta, k))
-    block = pl.BlockSpec(
-        (TILE_ROWS, 128), lambda i: (i, 0), memory_space=pltpu.VMEM
-    )
-    gblock = pl.BlockSpec(
-        plane_shape, lambda i: (0, 0), memory_space=pltpu.VMEM
-    )
-
-    def local(seed, s0, gpk):
-        pix0 = (jax.lax.axis_index(AXIS_PIXEL) * n_pix_loc).astype(
-            jnp.uint32
-        )
-        samp0 = s0 + (
-            jax.lax.axis_index(AXIS_SAMPLE) * n_s_loc
-        ).astype(jnp.uint32)
-        pix = pix0 + jnp.repeat(jnp.arange(n_pix_loc, dtype=jnp.uint32), g)
-        px = (pix % jnp.uint32(cfg.width)).astype(jnp.float32)
-        py = (pix // jnp.uint32(cfg.width)).astype(jnp.float32)
-        pid_base = pix * jnp.uint32(cfg.spp)
-        s_start = samp0 + jnp.tile(
-            jnp.arange(g, dtype=jnp.uint32) * jnp.uint32(per), n_pix_loc
-        )
-        s_stop = s_start + jnp.uint32(per)
-
-        def padto(x, fill):
-            return jnp.pad(x, (0, pad), constant_values=fill).reshape(
-                n_tiles * TILE_ROWS, 128
-            )
-
-        lr, lg, lb, traces = pl.pallas_call(
-            kernel,
-            grid=(n_tiles,),
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-                gblock,
-                block, block, block, block, block,
-            ],
-            out_specs=[
-                block, block, block,
-                pl.BlockSpec((1, 2), lambda i: (0, 0),
-                             memory_space=pltpu.SMEM),
-            ],
-            out_shape=[
-                jax.ShapeDtypeStruct((n_tiles * TILE_ROWS, 128),
-                                     jnp.float32),
-                jax.ShapeDtypeStruct((n_tiles * TILE_ROWS, 128),
-                                     jnp.float32),
-                jax.ShapeDtypeStruct((n_tiles * TILE_ROWS, 128),
-                                     jnp.float32),
-                jax.ShapeDtypeStruct((1, 2), jnp.float32),
-            ],
-            interpret=interpret,
-        )(
-            seed.reshape(1),
-            gpk,
-            padto(px, 0.0), padto(py, 0.0), padto(pid_base, 0),
-            padto(s_start, 0), padto(s_stop, 0),
-        )
-        L = jnp.stack(
-            [lr.reshape(-1)[:n_lanes], lg.reshape(-1)[:n_lanes],
-             lb.reshape(-1)[:n_lanes]],
-            axis=-1,
-        )
-        img_loc = L.reshape(n_pix_loc, g, 3).sum(axis=1)
-        img_loc = jax.lax.psum(img_loc, AXIS_SAMPLE)
-        return img_loc, jax.lax.psum(
-            traces[0], (AXIS_PIXEL, AXIS_SAMPLE)
-        )
-
-    return jax.jit(
-        jax.shard_map(
-            local, mesh=mesh,
-            in_specs=(P(), P(), P()),  # guide table replicated
-            out_specs=(P(AXIS_PIXEL), P()), check_vma=False,
-        )
-    )
 
 
 def render_pallas_sharded(scene: Scene, cam: CameraParams, cfg: RenderConfig,
-                          mesh, seed, interpret: bool = False,
-                          s0=0, n_s: int | None = None):
+                          mesh, seed, s0=0, n_s: int | None = None):
     """Megakernel + device mesh: each device runs the SAME compiled kernel
     over its (pixel-block x sample-range) lanes inside shard_map; per-pixel
-    sums reduce over the dp axis with one psum (ICI). Composes the fastest
-    single-chip path with the parallel/ scaling design.
+    sums reduce over the dp axis with one psum. Composes the fastest
+    single-device path with the parallel/ scaling design.
 
     s0/n_s render the sample span [s0, s0+n_s) only (checkpoint spans;
     n_s defaults to cfg.spp). Compiled executables are cached per
     (geometry, cfg, mesh, n_s) — s0 is traced.
 
-    Returns ((h*w, 3) radiance sum sharded over sp, traces (2,) [extend,
-    probe] psum-reduced over the whole mesh)."""
-    if not interpret and jax.devices()[0].platform != "tpu":
-        interpret = True
+    Returns ((h*w, 3) radiance sum sharded over sp, the per-block trace
+    rows of every device)."""
     n_s = cfg.spp if n_s is None else int(n_s)
-    use_tab = _use_sphere_table(scene, cfg)
-    ghash = (_geom_hash_structure(scene, cam) if use_tab
-             else _geom_hash(scene, cam))
-    key = (ghash, use_tab, cfg, mesh, n_s, interpret, "sharded",
-           _fold_enabled())
-    fn = _CACHE.get(key)
-    if fn is None:
-        fn = _build_render_sharded(scene, cam, cfg, mesh, n_s, interpret,
-                                   use_tab)
-        _CACHE[key] = fn
-    return fn(scene, jnp.asarray(seed, jnp.uint32),
-              jnp.asarray(s0, jnp.uint32))
+    use_tab, ghash, tables = _scene_inputs(scene, cam, cfg)
+    key = _cache_key(ghash, use_tab, cfg, mesh, n_s, "sharded")
+    run = _CACHE.get(key)
+    if run is None:
+        run = _CACHE[key] = _build_render_sharded(scene, cam, cfg, mesh, n_s,
+                                                  use_tab)
+    img, per_block = run(jnp.asarray(seed, jnp.uint32),
+                         jnp.asarray(s0, jnp.uint32), *tables)
+    return img, per_block
 
 
 def _build_render_sharded(scene: Scene, cam: CameraParams,
-                          cfg: RenderConfig, mesh, n_s: int,
-                          interpret: bool, use_tab: bool = False):
+                          cfg: RenderConfig, mesh, n_s: int, use_tab: bool):
     from jax.sharding import PartitionSpec as P
 
     from ..parallel.mesh import AXIS_PIXEL, AXIS_SAMPLE
@@ -3332,90 +2285,28 @@ def _build_render_sharded(scene: Scene, cam: CameraParams,
         raise ValueError(f"{n_pix=} % {n_sp=} or {n_s=} % {n_dp=} != 0")
     n_pix_loc = n_pix // n_sp
     n_s_loc = n_s // n_dp
-
-    from ..integrator.wavefront import lane_groups
-
-    g = lane_groups(n_pix_loc, n_s_loc, 1 << 18, cfg.regen_groups)
-    per = n_s_loc // g
-    n_lanes = n_pix_loc * g
-    pad = (-n_lanes) % TILE
-    n_tiles = (n_lanes + pad) // TILE
-
+    g, per, n_lanes, n_blocks = lane_layout(n_pix_loc, n_s_loc,
+                                            cfg.regen_groups)
     kernel = build_kernel(scene, cam, cfg, mat_refs=use_tab,
                           sphere_tab=use_tab)
-    block = pl.BlockSpec(
-        (TILE_ROWS, 128), lambda i: (i, 0), memory_space=pltpu.VMEM
-    )
-    smem = pl.BlockSpec(memory_space=pltpu.SMEM)
 
     def local(seed, s0, *tables):
         pix0 = (jax.lax.axis_index(AXIS_PIXEL) * n_pix_loc).astype(jnp.uint32)
         samp0 = s0 + (
             jax.lax.axis_index(AXIS_SAMPLE) * n_s_loc
         ).astype(jnp.uint32)
-        pix = pix0 + jnp.repeat(jnp.arange(n_pix_loc, dtype=jnp.uint32), g)
-        px = (pix % jnp.uint32(cfg.width)).astype(jnp.float32)
-        py = (pix // jnp.uint32(cfg.width)).astype(jnp.float32)
-        pid_base = pix * jnp.uint32(cfg.spp)
-        s_start = samp0 + jnp.tile(
-            jnp.arange(g, dtype=jnp.uint32) * jnp.uint32(per), n_pix_loc
-        )
-        s_stop = s_start + jnp.uint32(per)
+        _, lanes = frame_lanes(cfg, n_pix_loc, g, per, n_blocks, pix0, samp0)
+        L, traces = launch_forward(kernel, n_blocks, seed, tables, lanes)
+        img_loc = L[:n_lanes].reshape(n_pix_loc, g, 3).sum(axis=1)
+        return jax.lax.psum(img_loc, AXIS_SAMPLE), traces
 
-        def padto(x, fill):
-            return jnp.pad(x, (0, pad), constant_values=fill).reshape(
-                n_tiles * TILE_ROWS, 128
-            )
-
-        lr, lg, lb, traces = pl.pallas_call(
-            kernel,
-            grid=(n_tiles,),
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-                *([smem, smem, smem] if use_tab else []),
-                block, block, block, block, block,
-            ],
-            out_specs=[
-                block, block, block,
-                pl.BlockSpec((1, 2), lambda i: (0, 0),
-                             memory_space=pltpu.SMEM),
-            ],
-            out_shape=[
-                jax.ShapeDtypeStruct((n_tiles * TILE_ROWS, 128), jnp.float32),
-                jax.ShapeDtypeStruct((n_tiles * TILE_ROWS, 128), jnp.float32),
-                jax.ShapeDtypeStruct((n_tiles * TILE_ROWS, 128), jnp.float32),
-                jax.ShapeDtypeStruct((1, 2), jnp.float32),
-            ],
-            interpret=interpret,
-        )(
-            seed.reshape(1),
-            *tables,
-            padto(px, 0.0), padto(py, 0.0), padto(pid_base, 0),
-            padto(s_start, 0), padto(s_stop, 0),
-        )
-        L = jnp.stack(
-            [lr.reshape(-1)[:n_lanes], lg.reshape(-1)[:n_lanes],
-             lb.reshape(-1)[:n_lanes]],
-            axis=-1,
-        )
-        img_loc = L.reshape(n_pix_loc, g, 3).sum(axis=1)
-        img_loc = jax.lax.psum(img_loc, AXIS_SAMPLE)
-        return img_loc, jax.lax.psum(
-            traces[0], (AXIS_PIXEL, AXIS_SAMPLE)
-        )
-
-    run = jax.jit(
+    return jax.jit(
         jax.shard_map(
             local, mesh=mesh,
             # Scene tables (if any) are tiny and replicated on every device.
             in_specs=(P(), P()) + ((P(),) * 3 if use_tab else ()),
-            out_specs=(P(AXIS_PIXEL), P()), check_vma=False,
+            # Per-block trace rows of every device, concatenated.
+            out_specs=(P(AXIS_PIXEL), P((AXIS_PIXEL, AXIS_SAMPLE))),
+            check_vma=False,
         )
     )
-
-    def fn(scene_now: Scene, seed, s0):
-        if use_tab:
-            return run(seed, s0, *_sphere_tables(scene_now))
-        return run(seed, s0)
-
-    return fn

@@ -1,7 +1,7 @@
 """Geometry-differentiable Pallas megakernel: sphere center/radius (and
-materials) at chip speed, over the RUNTIME sphere table.
+materials) at kernel speed, over the RUNTIME sphere table.
 
-Closes the VERDICT round-3 top item: the adjoint megakernel
+The material adjoint kernel
 (ops/megakernel_grad.py) differentiates materials only, so sphere
 center/radius fits paid 2P+1 CRN finite-difference renders per step
 (grad/fd.py). This kernel computes the full pathwise INTERIOR cotangent
@@ -50,13 +50,12 @@ only lambda = (dL/d o_j, dL/d d_j) per bounce:
    formulas (direct term, RR 1/p tie-split, emission pickups, textbook
    direct term) — each bounce is VJP'd exactly once per sample, so the
    coverage is identical. Sphere materials route to the winner's table
-   row via a fori_loop masked scatter into VMEM accumulation planes
-   (dynamic leading-index stores); unrolled materials use static
-   indices.
+   row by a per-row masked add into per-lane accumulators; every block
+   sums its lanes into one output row, and XLA sums the rows.
 
 Everything trainable is a RUNTIME input (the packed sphere table +
 unrolled material tables of build_kernel(sphere_tab=True)), so a fit
-loop never recompiles — the property that makes chip-speed geometry
+loop never recompiles — the property that makes kernel-speed geometry
 fitting practical (grad/fd.py got it from the same table).
 
 Scope (hard-validated in build_geom_grad_kernel): sphere_tab scenes
@@ -82,14 +81,12 @@ config.py ``sampler``).
 from __future__ import annotations
 
 import math
-from functools import partial
 
 import numpy as np
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..camera.pinhole import CameraParams
 from ..config import RenderConfig
@@ -97,6 +94,7 @@ from ..core import rng
 from ..core import vecmath as vm
 from ..scene.types import Scene
 from ..integrator.sampling import SHADOW_EPS
+from . import route
 from .megakernel import (
     TAB_STRIDE,
     _FlatRows,
@@ -110,19 +108,26 @@ from .megakernel import (
     _trace_unrolled,
     _u32c,
     _uniform_for,
+    frame_lanes,
+    lane_layout,
+    lane_spec,
     make_spawn,
+    pad_lanes,
 )
 
-# Small tiles: the gradient accumulation planes cost
-# (S*10 + U*6) * ROWS * 128 * 4 bytes of VMEM scratch; ROWS=8 (one f32
-# vreg per plane) keeps a 256-sphere scene's planes at ~10.4 MB inside
-# the ~16 MB/core budget, and the VPU's native (8, 128) shape means the
-# narrow tiles lose no vector efficiency.
-G_ROWS = 8
-G_TILE = G_ROWS * 128
-# Per-sphere gradient columns in the accumulation planes / flat output:
-# [cx, cy, cz, r, alb_r, alb_g, alb_b, emi_r, emi_g, emi_b].
+# Per-sphere gradient columns in the accumulators / flat output:
+# [cx, cy, cz, r, alb_r, alb_g, alb_b, emi_r, emi_g, emi_b]. Every lane
+# carries U*6 + S*G_COLS accumulators, so registers bound the sphere
+# count this kernel serves well (PERF.md).
 G_COLS = 10
+
+# Largest sphere table the kernel accepts: its per-lane carries and
+# per-bounce masked adds grow with S. On an H100 it beat jax.grad of
+# grad/adjoint.render_linear at every count measured, up to this one
+# (2.0x, 47 s cold compile; PERF.md, "Geometry adjoint and sphere
+# count"); larger tables were not measured. Larger scenes fit through the
+# jnp adjoint or fit --fd-sphere.
+GEOM_MAX_SPHERES = 128
 
 SUPPORTED_ESTIMATORS = (
     "nee", "mixture", "nee_textbook", "cosine", "uniform",
@@ -173,6 +178,12 @@ def build_geom_grad_kernel(scene: Scene, cam: CameraParams,
     if S == 0:
         raise ValueError("no spheres to differentiate; use the material "
                          "adjoint kernel (ops/megakernel_grad.py)")
+    if S > GEOM_MAX_SPHERES:
+        raise ValueError(
+            f"the geometry adjoint kernel takes at most {GEOM_MAX_SPHERES} "
+            f"spheres (got {S}); fit larger scenes with the jnp adjoint "
+            "(drop --pallas) or fit --fd-sphere"
+        )
     base = len(rects) + len(quads)
     if base == 0:
         raise ValueError("sphere-table mode needs at least one unrolled "
@@ -265,8 +276,7 @@ def build_geom_grad_kernel(scene: Scene, cam: CameraParams,
     def kernel(seed_ref, bk_ref, alb_ref_raw, emi_ref_raw, tab_ref,
                px_ref, py_ref, pid_ref, sstart_ref, sstop_ref,
                gr_ref, gg_ref, gb_ref,
-               ir_ref, ig_ref, ib_ref,
-               gtab_ref, galb_ref, gemi_ref, gacc):
+               ir_ref, ig_ref, ib_ref, gout_ref):
         alb_ref = _FlatRows(alb_ref_raw, 3)
         emi_ref = _FlatRows(emi_ref_raw, 3)
         rects_k = _runtime_materials(rects, alb_ref, emi_ref, 0)
@@ -289,8 +299,6 @@ def build_geom_grad_kernel(scene: Scene, cam: CameraParams,
         s_stop = sstop_ref[...]
         s0 = sstart_ref[...]
         g_ct = (gr_ref[...], gg_ref[...], gb_ref[...])
-
-        gacc[...] = jnp.zeros((NPLANES, G_ROWS, 128), jnp.float32)
 
         pid0 = pid_base + s0
         zero = jnp.zeros_like(px)
@@ -326,11 +334,17 @@ def build_geom_grad_kernel(scene: Scene, cam: CameraParams,
             zero,                                           # 31 mpdf (mis)
             zero,                                           # 32 lambda_mpdf
         )
+        n_state = len(carry0)
+        # Per-lane cotangent accumulators: unrolled object o at o*6 +
+        # [alb rgb, emi rgb], table row i at U*6 + i*G_COLS + column.
+        carry0 = carry0 + (zero,) * NPLANES
 
         def cond(c):
             return jnp.max(c[23]) > 0
 
         def body(c):
+            gacc = list(c[n_state:])
+            c = c[:n_state]
             (ox, oy, oz, dx, dy, dz, tr_, tg, tb, ar, ag, ab,
              lar, lag, lab, lox, loy, loz, lqx, lqy, lqz,
              ph, jtgt, alive_i, depth, s, pid, ne,
@@ -408,7 +422,7 @@ def build_geom_grad_kernel(scene: Scene, cam: CameraParams,
             p_pos = p_max > 0.0
             inv_p = jnp.where(
                 rr_active & p_pos,
-                pl.reciprocal(jnp.where(p_pos, p_max, 1.0), approx=False),
+                np.float32(1.0) / jnp.where(p_pos, p_max, 1.0),
                 1.0,
             )
             alive_next = alive & survive
@@ -858,7 +872,7 @@ def build_geom_grad_kernel(scene: Scene, cam: CameraParams,
                 bq = op1 * d1 + op2 * d2 + op3 * d3
                 # Recentered / rejection-form quadratic — MUST replay
                 # megakernel._table_sphere_hit's expression tree bit-for-bit
-                # (pass-A/pass-B replay exactness, PERF.md round 4).
+                # (pass-A/pass-B replay exactness).
                 m1_ = bq * d1 - op1
                 m2_ = bq * d2 - op2
                 m3_ = bq * d3 - op3
@@ -1171,9 +1185,7 @@ def build_geom_grad_kernel(scene: Scene, cam: CameraParams,
                 for chn in range(3)
             ]
             n_eq = eqs[0] + eqs[1] + eqs[2]
-            inv_neq = pl.reciprocal(
-                jnp.where(n_eq > 0.0, n_eq, 1.0), approx=False
-            )
+            inv_neq = np.float32(1.0) / jnp.where(n_eq > 0.0, n_eq, 1.0)
             am_w = [e * inv_neq for e in eqs]
             val_alb_tot = [
                 val_alb[chn] + am_w[chn] * s_am for chn in range(3)
@@ -1221,7 +1233,7 @@ def build_geom_grad_kernel(scene: Scene, cam: CameraParams,
                         * h["alb"][chn]
                     )
 
-            # Table-sphere rows: geometry + materials, fori masked scatter.
+            # Table-sphere rows: geometry + materials, masked per row.
             row = win - np.int32(base)
             geo_mask = jnp.where(is_vjp & is_tab_w, np.float32(1.0),
                                  np.float32(0.0))
@@ -1233,16 +1245,12 @@ def build_geom_grad_kernel(scene: Scene, cam: CameraParams,
                 geo_mask * val_emi[0], geo_mask * val_emi[1],
                 geo_mask * val_emi[2],
             ]
-
-
-            def scat_body(i, carry):
-                m_i = jnp.where(row == i, np.float32(1.0), np.float32(0.0))
+            for i in range(S):
+                m_i = jnp.where(row == np.int32(i), np.float32(1.0),
+                                np.float32(0.0))
                 for k in range(G_COLS):
                     idx = U * 6 + i * G_COLS + k
                     gacc[idx] = gacc[idx] + m_i * svals[k]
-                return carry
-
-            jax.lax.fori_loop(0, S, scat_body, np.int32(0))
 
             # ---------------- per-lane state machine ---------------------
             died = alive & ~alive_next
@@ -1283,8 +1291,6 @@ def build_geom_grad_kernel(scene: Scene, cam: CameraParams,
                 hx = jnp.where(off_m, pox, hx)
                 hy = jnp.where(off_m, poy, hy)
                 hz = jnp.where(off_m, poz, hz)
-            # Logical form, not jnp.where-over-bools (Mosaic lowers
-            # bool selects through i8 and rejects the i8->i1 trunc).
             isA = ph == 0
             cont = (isA & alive_next) | (~isA & alive & ~is_vjp)
             ox = jnp.where(reborn, o_sp[0] + zero,
@@ -1356,43 +1362,16 @@ def build_geom_grad_kernel(scene: Scene, cam: CameraParams,
             return (ox, oy, oz, dx, dy, dz, tr_, tg, tb, ar, ag, ab,
                     lar, lag, lab, lox, loy, loz, lqx, lqy, lqz,
                     ph, jtgt, alive_i, depth, s, pid, ne,
-                    imr, img_, imb, mpdf, lmp)
+                    imr, img_, imb, mpdf, lmp, *gacc)
 
         out = jax.lax.while_loop(cond, body, carry0)
         ir_ref[...] = out[28]
         ig_ref[...] = out[29]
         ib_ref[...] = out[30]
-
-        # Reduce this tile's planes into the flat SMEM outputs (grid steps
-        # run sequentially on a TPU core: zero on step 0, accumulate).
-        pid_g = pl.program_id(0)
-
-        @pl.when(pid_g == 0)
-        def _():
-            for i in range(U * 3):
-                galb_ref[i] = np.float32(0.0)
-                gemi_ref[i] = np.float32(0.0)
-            for i in range(S * TAB_STRIDE):
-                gtab_ref[i] = np.float32(0.0)
-
-        for o in range(U):
-            for chn in range(3):
-                galb_ref[o * 3 + chn] = galb_ref[o * 3 + chn] + jnp.sum(
-                    gacc[o * 6 + chn]
-                )
-                gemi_ref[o * 3 + chn] = gemi_ref[o * 3 + chn] + jnp.sum(
-                    gacc[o * 6 + 3 + chn]
-                )
-
-        def red_body(i, carry):
-            for k in range(G_COLS):
-                dst = i * TAB_STRIDE + k
-                gtab_ref[dst] = gtab_ref[dst] + jnp.sum(
-                    gacc[U * 6 + i * G_COLS + k]
-                )
-            return carry
-
-        jax.lax.fori_loop(0, S, red_body, np.int32(0))
+        # This block's cotangent sums, one row per block: blocks run in
+        # parallel, and XLA sums the rows after the launch.
+        for k in range(NPLANES):
+            gout_ref[0, k] = jnp.sum(out[n_state + k])
 
     return kernel, U, S
 
@@ -1404,20 +1383,40 @@ def build_geom_grad_kernel(scene: Scene, cam: CameraParams,
 _CACHE: dict = {}
 
 
-def _lane_layout(cfg: RenderConfig):
-    from ..integrator.wavefront import lane_groups
-
-    n_pix = cfg.width * cfg.height
-    g = lane_groups(n_pix, cfg.spp, 1 << 18, cfg.regen_groups)
-    per = cfg.spp // g
-    n_lanes = n_pix * g
-    pad = (-n_lanes) % G_TILE
-    n_tiles = (n_lanes + pad) // G_TILE
-    return n_pix, g, per, n_lanes, pad, n_tiles
+def launch_geom(kernel, U: int, S: int, n_blocks: int, seed, bk, alb, emi,
+                packed, lanes, g_lanes):
+    """One geometry-adjoint launch over padded lanes. Returns (per-lane
+    radiance (n, 3), gtab (S*TAB_STRIDE,), galb (U*3,), gemi (U*3,)): the
+    per-block cotangent rows, summed by XLA and unpacked into the flat
+    table layouts of _sphere_tables."""
+    n = n_blocks * route.block_lanes()
+    n_planes = U * 6 + S * G_COLS
+    plane = jax.ShapeDtypeStruct((n,), jnp.float32)
+    ir, ig, ib, rows = pl.pallas_call(
+        kernel,
+        grid=(n_blocks,),
+        in_specs=[pl.BlockSpec()] * 5 + [lane_spec()] * 8,
+        out_specs=[lane_spec()] * 3 + [
+            pl.BlockSpec((1, n_planes), lambda i: (i, 0))
+        ],
+        out_shape=[plane] * 3 + [
+            jax.ShapeDtypeStruct((n_blocks, n_planes), jnp.float32)
+        ],
+        name="spt_geometry_vjp",
+        **route.pallas_call_kwargs(),
+    )(jnp.asarray(seed, jnp.uint32).reshape(1),
+      jnp.asarray(bk, jnp.int32).reshape(1), alb, emi, packed, *lanes,
+      *g_lanes)
+    tot = rows.sum(axis=0)
+    u = tot[:U * 6].reshape(U, 2, 3)
+    gtab = jnp.pad(tot[U * 6:].reshape(S, G_COLS),
+                   ((0, 0), (0, TAB_STRIDE - G_COLS))).reshape(-1)
+    return (jnp.stack([ir, ig, ib], axis=-1), gtab,
+            u[:, 0].reshape(-1), u[:, 1].reshape(-1))
 
 
 def geom_run(scene: Scene, cam: CameraParams, cfg: RenderConfig,
-             seed, g_img=None, interpret: bool = False):
+             seed, g_img=None):
     """One launch of the geometry-adjoint kernel.
 
     With ``g_img=None``: image-only call (the backward state machine is
@@ -1435,13 +1434,11 @@ def geom_run(scene: Scene, cam: CameraParams, cfg: RenderConfig,
     slots zero); galb/gemi cover the unrolled objects (flat (K*3,),
     _sphere_tables layout). Pathwise interior only; compose boundary
     terms with grad/edge.py."""
-    if not interpret and jax.devices()[0].platform != "tpu":
-        interpret = True
-    key = (_geom_hash_structure(scene, cam), cfg, interpret, "geom_vjp")
+    key = (_geom_hash_structure(scene, cam), cfg, route.platform(),
+           route.block_lanes(), "geom_vjp")
     fn = _CACHE.get(key)
     if fn is None:
-        fn = _build_geom_run(scene, cam, cfg, interpret)
-        _CACHE[key] = fn
+        fn = _CACHE[key] = _build_geom_run(scene, cam, cfg)
     alb, emi, packed = _sphere_tables(scene)
     if g_img is None:
         bk = jnp.int32(0)
@@ -1453,81 +1450,27 @@ def geom_run(scene: Scene, cam: CameraParams, cfg: RenderConfig,
 
 
 def geom_vjp(scene: Scene, cam: CameraParams, cfg: RenderConfig,
-             seed, g_img, interpret: bool = False):
+             seed, g_img):
     """Adjoint-only convenience wrapper: (gtab, galb, gemi)."""
-    _, gtab, galb, gemi = geom_run(scene, cam, cfg, seed, g_img, interpret)
+    _, gtab, galb, gemi = geom_run(scene, cam, cfg, seed, g_img)
     return gtab, galb, gemi
 
 
-def _build_geom_run(scene: Scene, cam: CameraParams, cfg: RenderConfig,
-                    interpret: bool):
-    n_pix, g, per, n_lanes, pad, n_tiles = _lane_layout(cfg)
+def _build_geom_run(scene: Scene, cam: CameraParams, cfg: RenderConfig):
+    n_pix = cfg.width * cfg.height
+    g, per, n_lanes, n_blocks = lane_layout(n_pix, cfg.spp,
+                                            cfg.regen_groups)
     kernel, U, S = build_geom_grad_kernel(scene, cam, cfg)
-    block = pl.BlockSpec(
-        (G_ROWS, 128), lambda i: (i, 0), memory_space=pltpu.VMEM
-    )
 
     @jax.jit
     def run(alb, emi, packed, seed, bk, g_img):
-        pix = jnp.repeat(jnp.arange(n_pix, dtype=jnp.uint32), g)
-        px = (pix % jnp.uint32(cfg.width)).astype(jnp.float32)
-        py = (pix // jnp.uint32(cfg.width)).astype(jnp.float32)
-        pid_base = pix * jnp.uint32(cfg.spp)
-        s_start = jnp.tile(
-            jnp.arange(g, dtype=jnp.uint32) * jnp.uint32(per), n_pix
+        pix, lanes = frame_lanes(cfg, n_pix, g, per, n_blocks)
+        g_lane = g_img.reshape(n_pix, 3)[pix]
+        L, gtab, galb, gemi = launch_geom(
+            kernel, U, S, n_blocks, seed, bk, alb, emi, packed, lanes,
+            [pad_lanes(g_lane[:, c], n_blocks) for c in range(3)],
         )
-        s_stop = s_start + jnp.uint32(per)
-
-        def padto(x, fill):
-            return jnp.pad(x, (0, pad), constant_values=fill).reshape(
-                n_tiles * G_ROWS, 128
-            )
-
-        gflat = g_img.reshape(n_pix, 3)
-        g_lane = gflat[pix]
-        ir, ig, ib, gtab, galb, gemi = pl.pallas_call(
-            kernel,
-            grid=(n_tiles,),
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.SMEM),  # seed
-                pl.BlockSpec(memory_space=pltpu.SMEM),  # bk flag
-                pl.BlockSpec(memory_space=pltpu.SMEM),  # alb flat
-                pl.BlockSpec(memory_space=pltpu.SMEM),  # emi flat
-                pl.BlockSpec(memory_space=pltpu.SMEM),  # packed rows
-                block, block, block, block, block,      # lane assignment
-                block, block, block,                    # cotangents
-            ],
-            out_specs=[
-                block, block, block,                    # image sums
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-            ],
-            out_shape=[
-                jax.ShapeDtypeStruct((n_tiles * G_ROWS, 128), jnp.float32),
-                jax.ShapeDtypeStruct((n_tiles * G_ROWS, 128), jnp.float32),
-                jax.ShapeDtypeStruct((n_tiles * G_ROWS, 128), jnp.float32),
-                jax.ShapeDtypeStruct((S * TAB_STRIDE,), jnp.float32),
-                jax.ShapeDtypeStruct((U * 3,), jnp.float32),
-                jax.ShapeDtypeStruct((U * 3,), jnp.float32),
-            ],
-            scratch_shapes=[
-                pltpu.VMEM((U * 6 + S * G_COLS, G_ROWS, 128), jnp.float32),
-            ],
-            interpret=interpret,
-        )(
-            seed.reshape(1), bk.reshape(1), alb, emi, packed,
-            padto(px, 0.0), padto(py, 0.0), padto(pid_base, 0),
-            padto(s_start, 0), padto(s_stop, 0),
-            padto(g_lane[:, 0], 0.0), padto(g_lane[:, 1], 0.0),
-            padto(g_lane[:, 2], 0.0),
-        )
-        L = jnp.stack(
-            [ir.reshape(-1)[:n_lanes], ig.reshape(-1)[:n_lanes],
-             ib.reshape(-1)[:n_lanes]],
-            axis=-1,
-        )
-        img = L.reshape(n_pix, g, 3).sum(axis=1).reshape(
+        img = L[:n_lanes].reshape(n_pix, g, 3).sum(axis=1).reshape(
             cfg.height, cfg.width, 3
         )
         return img, gtab, galb, gemi
@@ -1561,10 +1504,10 @@ def grads_to_scene(scene: Scene, gtab, galb, gemi) -> Scene:
 
 
 def loss_and_geom_grads(scene: Scene, cam: CameraParams, cfg: RenderConfig,
-                        seed, target, interpret: bool = False,
+                        seed, target,
                         edge_sphere: int | None = None,
                         edge_n_phi: int = 256):
-    """One chip-speed geometry-training evaluation: MSE of the linear
+    """One kernel-path geometry-training evaluation: MSE of the linear
     mean image vs ``target`` (h, w, 3), with pathwise interior gradients
     for every table sphere's (center, radius, albedo, emission) and
     every unrolled object's materials.
@@ -1583,14 +1526,14 @@ def loss_and_geom_grads(scene: Scene, cam: CameraParams, cfg: RenderConfig,
 
     Returns (loss, scene-shaped gradient pytree)."""
     seed = jnp.uint32(seed)
-    img_sum, _, _, _ = geom_run(scene, cam, cfg, seed, None, interpret)
+    img_sum, _, _, _ = geom_run(scene, cam, cfg, seed, None)
     spp = cfg.spp
     img = img_sum / spp
     target = jnp.asarray(target, jnp.float32)
     diff = img - target
     loss = jnp.mean(diff * diff)
     g_img = diff * (2.0 / (diff.size * spp))
-    _, gtab, galb, gemi = geom_run(scene, cam, cfg, seed, g_img, interpret)
+    _, gtab, galb, gemi = geom_run(scene, cam, cfg, seed, g_img)
     gsc = grads_to_scene(scene, gtab, galb, gemi)
     if edge_sphere is not None:
         gsc = _compose_edge_terms(scene, cam, cfg, diff, int(seed),
@@ -1634,15 +1577,14 @@ def _compose_edge_terms(scene, cam, cfg, diff, seed, si, gsc,
 
 
 def geom_train_step_sharded(scene: Scene, cam: CameraParams,
-                            cfg: RenderConfig, mesh, target,
-                            interpret: bool = False):
-    """Sharded chip-speed GEOMETRY-fit step: one shard_map in which every
+                            cfg: RenderConfig, mesh, target):
+    """Sharded GEOMETRY-fit step: one shard_map in which every
     device (a) runs the geometry-adjoint program image-only (bk=0) on its
     (pixel-block x sample-range) lanes, (b) psums the partial image over
     the sample axis, (c) derives its local loss cotangent from its own
     pixel rows of ``target``, and (d) replays the SAME lanes with the
     backward enabled (bk=1), psum-reducing (gtab, galb, gemi) over the
-    whole mesh (ICI) — the multi-chip form of loss_and_geom_grads, so
+    whole mesh — the multi-device form of loss_and_geom_grads, so
     whole-table geometry fits scale like the forward renderer. Both
     launches run the SAME compiled program on the SAME lane set, so the
     per-device loss and gradient keep the two-call CRN property.
@@ -1655,11 +1597,8 @@ def geom_train_step_sharded(scene: Scene, cam: CameraParams,
     (Mirrors megakernel_grad.material_train_step_sharded.)"""
     from jax.sharding import PartitionSpec as P
 
-    from ..integrator.wavefront import lane_groups
     from ..parallel.mesh import AXIS_PIXEL, AXIS_SAMPLE
 
-    if not interpret and jax.devices()[0].platform != "tpu":
-        interpret = True
     n_sp = mesh.shape[AXIS_PIXEL]
     n_dp = mesh.shape[AXIS_SAMPLE]
     n_pix = cfg.width * cfg.height
@@ -1668,42 +1607,12 @@ def geom_train_step_sharded(scene: Scene, cam: CameraParams,
         raise ValueError(f"{n_pix=} % {n_sp=} or {spp=} % {n_dp=} != 0")
     n_pix_loc = n_pix // n_sp
     n_s_loc = spp // n_dp
-    g = lane_groups(n_pix_loc, n_s_loc, 1 << 18, cfg.regen_groups)
-    per = n_s_loc // g
-    n_lanes = n_pix_loc * g
-    pad = (-n_lanes) % G_TILE
-    n_tiles = (n_lanes + pad) // G_TILE
+    g, per, n_lanes, n_blocks = lane_layout(n_pix_loc, n_s_loc,
+                                            cfg.regen_groups)
 
     kernel, U, S = build_geom_grad_kernel(scene, cam, cfg)
-    block = pl.BlockSpec(
-        (G_ROWS, 128), lambda i: (i, 0), memory_space=pltpu.VMEM
-    )
-    smem = pl.BlockSpec(memory_space=pltpu.SMEM)
     target_flat = jnp.asarray(target, jnp.float32).reshape(n_pix, 3)
     inv_n = np.float32(2.0 / (n_pix * 3 * spp))
-
-    def call(alb, emi, packed, seed, bk, lanes, gr, gg, gb):
-        return pl.pallas_call(
-            kernel,
-            grid=(n_tiles,),
-            in_specs=[smem, smem, smem, smem, smem,
-                      block, block, block, block, block,
-                      block, block, block],
-            out_specs=[block, block, block, smem, smem, smem],
-            out_shape=[
-                jax.ShapeDtypeStruct((n_tiles * G_ROWS, 128), jnp.float32),
-                jax.ShapeDtypeStruct((n_tiles * G_ROWS, 128), jnp.float32),
-                jax.ShapeDtypeStruct((n_tiles * G_ROWS, 128), jnp.float32),
-                jax.ShapeDtypeStruct((S * TAB_STRIDE,), jnp.float32),
-                jax.ShapeDtypeStruct((U * 3,), jnp.float32),
-                jax.ShapeDtypeStruct((U * 3,), jnp.float32),
-            ],
-            scratch_shapes=[
-                pltpu.VMEM((U * 6 + S * G_COLS, G_ROWS, 128), jnp.float32),
-            ],
-            interpret=interpret,
-        )(seed.reshape(1), bk.reshape(1), alb, emi, packed,
-          *lanes, gr, gg, gb)
 
     def local(alb, emi, packed, seed, tgt_loc):
         pix0 = (jax.lax.axis_index(AXIS_PIXEL) * n_pix_loc).astype(
@@ -1712,34 +1621,11 @@ def geom_train_step_sharded(scene: Scene, cam: CameraParams,
         samp0 = (
             jax.lax.axis_index(AXIS_SAMPLE) * n_s_loc
         ).astype(jnp.uint32)
-        pix = pix0 + jnp.repeat(jnp.arange(n_pix_loc, dtype=jnp.uint32), g)
-        px = (pix % jnp.uint32(cfg.width)).astype(jnp.float32)
-        py = (pix // jnp.uint32(cfg.width)).astype(jnp.float32)
-        pid_base = pix * jnp.uint32(cfg.spp)
-        s_start = samp0 + jnp.tile(
-            jnp.arange(g, dtype=jnp.uint32) * jnp.uint32(per), n_pix_loc
-        )
-        s_stop = s_start + jnp.uint32(per)
-
-        def padto(x, fill):
-            return jnp.pad(x, (0, pad), constant_values=fill).reshape(
-                n_tiles * G_ROWS, 128
-            )
-
-        lanes = (
-            padto(px, 0.0), padto(py, 0.0), padto(pid_base, 0),
-            padto(s_start, 0), padto(s_stop, 0),
-        )
-        zg = padto(jnp.zeros((n_lanes,), jnp.float32), 0.0)
-        ir, ig, ib, _, _, _ = call(
-            alb, emi, packed, seed, jnp.int32(0), lanes, zg, zg, zg
-        )
-        L = jnp.stack(
-            [ir.reshape(-1)[:n_lanes], ig.reshape(-1)[:n_lanes],
-             ib.reshape(-1)[:n_lanes]],
-            axis=-1,
-        )
-        img_loc = L.reshape(n_pix_loc, g, 3).sum(axis=1)
+        _, lanes = frame_lanes(cfg, n_pix_loc, g, per, n_blocks, pix0, samp0)
+        zg = pad_lanes(jnp.zeros((n_lanes,), jnp.float32), n_blocks)
+        L, _, _, _ = launch_geom(kernel, U, S, n_blocks, seed, 0, alb, emi,
+                                 packed, lanes, (zg, zg, zg))
+        img_loc = L[:n_lanes].reshape(n_pix_loc, g, 3).sum(axis=1)
         img_loc = jax.lax.psum(img_loc, AXIS_SAMPLE)  # sum over spp
         diff = img_loc / np.float32(spp) - tgt_loc
         loss_loc = jnp.sum(diff * diff) / np.float32(n_pix * 3)
@@ -1753,10 +1639,9 @@ def geom_train_step_sharded(scene: Scene, cam: CameraParams,
         g_lane = (diff * inv_n)[
             jnp.repeat(jnp.arange(n_pix_loc, dtype=jnp.int32), g)
         ]
-        _, _, _, gtab, galb, gemi = call(
-            alb, emi, packed, seed, jnp.int32(1), lanes,
-            padto(g_lane[:, 0], 0.0), padto(g_lane[:, 1], 0.0),
-            padto(g_lane[:, 2], 0.0),
+        _, gtab, galb, gemi = launch_geom(
+            kernel, U, S, n_blocks, seed, 1, alb, emi, packed, lanes,
+            [pad_lanes(g_lane[:, c], n_blocks) for c in range(3)],
         )
         gtab = jax.lax.psum(gtab, (AXIS_PIXEL, AXIS_SAMPLE))
         galb = jax.lax.psum(galb, (AXIS_PIXEL, AXIS_SAMPLE))
@@ -1787,7 +1672,7 @@ def fit_pallas_geom(scene: Scene, cam: CameraParams, cfg: RenderConfig,
                     target, sphere_idx: int | None = None,
                     fields=("center", "radius"), steps: int = 10,
                     lr: float = 1.0, seed: int = 0,
-                    interpret: bool = False, log=None, mesh=None):
+                    log=None, mesh=None):
     """Chip-speed sphere-geometry inverse rendering through the adjoint
     kernel: same normalized-step trust-region descent as grad/fd.fit_fd
     (direction from the gradient, step length capped and backtracked on
@@ -1807,7 +1692,7 @@ def fit_pallas_geom(scene: Scene, cam: CameraParams, cfg: RenderConfig,
     equal resolution (tests/test_fd.py docstring).
 
     mesh: a jax.sharding.Mesh routes every step through
-    geom_train_step_sharded (one shard_map, gradients psum'd over ICI) —
+    geom_train_step_sharded (one shard_map, gradients psum'd) —
     the loss stays the deterministic single-device CRN value, so the
     trust-region acceptance is unchanged; the edge composition runs on
     the assembled mean image exactly as the single-device path does.
@@ -1819,8 +1704,7 @@ def fit_pallas_geom(scene: Scene, cam: CameraParams, cfg: RenderConfig,
     if mesh is not None:
         from .megakernel import _sphere_tables
 
-        step_fn = geom_train_step_sharded(scene, cam, cfg, mesh, target,
-                                          interpret)
+        step_fn = geom_train_step_sharded(scene, cam, cfg, mesh, target)
         target_arr = jnp.asarray(target, jnp.float32)
 
     cap0_geo = float(lr)
@@ -1835,7 +1719,7 @@ def fit_pallas_geom(scene: Scene, cam: CameraParams, cfg: RenderConfig,
     for i in range(steps):
         if mesh is None:
             loss, gsc = loss_and_geom_grads(
-                s, cam, cfg, jnp.uint32(seed), target, interpret,
+                s, cam, cfg, jnp.uint32(seed), target,
                 edge_sphere=edge_si,
             )
         else:

@@ -1,16 +1,16 @@
-"""Differentiable Pallas megakernel: chip-speed inverse rendering.
+"""Differentiable Pallas megakernel: kernel-speed inverse rendering.
 
 The reference's entire ``radiance()`` chain (/root/reference/src/
-smallpt.cpp:419-496) gets an adjoint here — the VERDICT round-1 gap "the
-Pallas megakernel is forward-only; every fit/train step runs the jnp
-lax.scan wavefront, ~300x slower on this hardware".
+smallpt.cpp:419-496) gets an adjoint here, so a fit step need not run
+jax.grad through the jnp lax.scan wavefront (whose tape lives in device
+memory); the kernel replays the path instead.
 
 Two kernels, both compiled ONCE per (geometry, config) — materials are
-RUNTIME inputs (SMEM tables), so a fit loop does NOT recompile per step
-(the round-1 blocker for kernel-path training):
+RUNTIME inputs (global-memory tables), so a fit loop does NOT recompile
+per step:
 
 1. forward: ``megakernel.build_kernel(mat_refs=True)`` — the standard
-   megakernel reading albedo/emission from (K, 3) SMEM refs instead of
+   megakernel reading albedo/emission from (K, 3) runtime tables instead of
    baked immediates; bit-identical renders at equal materials.
 2. adjoint (this module): replays every (pixel, sample) path TWICE with
    the identical counter-RNG stream:
@@ -21,9 +21,9 @@ RUNTIME inputs (SMEM tables), so a fit loop does NOT recompile per step
            T_j * S_{j+1} = (L - A_{j+1}) / f_j
        (f_j = albedo * inv_p * weight is this bounce's throughput factor;
        when a path dies, L - A_{j+1} is exactly 0 and the guarded divide
-       returns 0). Per-object cotangents accumulate into VMEM scratch
-       planes (mask-select on the winning object id — no scatter), reduced
-       per tile into SMEM outputs.
+       returns 0). Per-object cotangents accumulate in per-lane carries
+       (mask-select on the winning object id — no scatter), summed per
+       block into one output row per block; XLA sums the rows.
 
 What the adjoint computes (pathwise, matching the jnp lax.scan adjoint
 ``grad/adjoint.py`` exactly — FD/AD-validated in
@@ -57,14 +57,12 @@ from __future__ import annotations
 
 import hashlib
 import math
-from functools import partial
 
 import numpy as np
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..camera.pinhole import CameraParams
 from ..config import RenderConfig
@@ -72,9 +70,8 @@ from ..core import rng
 from ..core import vecmath as vm
 from ..integrator.sampling import SHADOW_EPS
 from ..scene.types import Scene
+from . import route
 from .megakernel import (
-    TILE,
-    TILE_ROWS,
     _light_list_consts,
     _light_select_cdf,
     _runtime_materials,
@@ -84,7 +81,12 @@ from .megakernel import (
     _u32c,
     _uniform_for,
     build_kernel,
+    frame_lanes,
+    lane_layout,
+    lane_spec,
+    launch_forward,
     make_spawn,
+    pad_lanes,
 )
 
 
@@ -210,9 +212,10 @@ def build_grad_kernel(scene: Scene, cam: CameraParams, cfg: RenderConfig):
         wrapped = (r * np.uint32(36)).view(jnp.int32).astype(jnp.float32)
         return wrapped * np.float32(1.0 / 2147483647.0)
 
+    n_acc = 2 * n_obj * 3
+
     def kernel(seed_ref, alb_ref, emi_ref, px_ref, py_ref, pid_ref,
-               sstart_ref, sstop_ref, gr_ref, gg_ref, gb_ref,
-               galb_ref, gemi_ref, gacc):
+               sstart_ref, sstop_ref, gr_ref, gg_ref, gb_ref, gout_ref):
         R, Q = len(rects), len(quads)
         rects_k = _runtime_materials(rects, alb_ref, emi_ref, 0)
         quads_k = _runtime_materials(quads, alb_ref, emi_ref, R)
@@ -232,9 +235,6 @@ def build_grad_kernel(scene: Scene, cam: CameraParams, cfg: RenderConfig):
         s_stop = sstop_ref[...]
         s0 = sstart_ref[...]
         g_ct = (gr_ref[...], gg_ref[...], gb_ref[...])
-
-        # Zero this tile's gradient accumulation planes.
-        gacc[...] = jnp.zeros((2 * n_obj * 3, TILE_ROWS, 128), jnp.float32)
 
         pid0 = pid_base + s0
         zero = jnp.zeros_like(px)
@@ -267,11 +267,17 @@ def build_grad_kernel(scene: Scene, cam: CameraParams, cfg: RenderConfig):
             # vertex's cos/pi of this ray), replayed exactly like the
             # forward kernel's mpdf plane.
             carry0 = carry0 + (zero,)
+        n_state = len(carry0)
+        # Per-lane cotangent accumulators, one plane per (object, channel)
+        # of albedo then emission: [alb(o, ch) for o, ch] + [emi(o, ch)].
+        carry0 = carry0 + (zero,) * n_acc
 
         def cond(c):
             return jnp.max(c[16]) > 0
 
         def body(c):
+            gacc = list(c[n_state:])
+            c = c[:n_state]
             if mis_est:
                 (ox, oy, oz, dx, dy, dz, tr_, tg, tb, ar, ag, ab,
                  lar, lag, lab, ph, alive_i, depth, s, pid, ne, mpdf) = c
@@ -354,7 +360,7 @@ def build_grad_kernel(scene: Scene, cam: CameraParams, cfg: RenderConfig):
             p_pos = p_max > 0.0
             inv_p = jnp.where(
                 rr_active & p_pos,
-                pl.reciprocal(jnp.where(p_pos, p_max, 1.0), approx=False),
+                np.float32(1.0) / jnp.where(p_pos, p_max, 1.0),
                 1.0,
             )
             alive_next = alive & survive
@@ -721,9 +727,7 @@ def build_grad_kernel(scene: Scene, cam: CameraParams, cfg: RenderConfig):
                 for chn in range(3)
             ]
             n_eq = eqs[0] + eqs[1] + eqs[2]
-            inv_neq = pl.reciprocal(
-                jnp.where(n_eq > 0.0, n_eq, 1.0), approx=False
-            )
+            inv_neq = np.float32(1.0) / jnp.where(n_eq > 0.0, n_eq, 1.0)
             am_w = [e * inv_neq for e in eqs]
             val_alb_tot = [
                 val_alb[chn] + am_w[chn] * s_am for chn in range(3)
@@ -855,33 +859,16 @@ def build_grad_kernel(scene: Scene, cam: CameraParams, cfg: RenderConfig):
                 )
                 return (ox, oy, oz, dx, dy, dz, tr_, tg, tb, ar, ag, ab,
                         lar, lag, lab, ph, alive_i, depth, s, pid, ne,
-                        mpdf)
+                        mpdf, *gacc)
             return (ox, oy, oz, dx, dy, dz, tr_, tg, tb, ar, ag, ab,
-                    lar, lag, lab, ph, alive_i, depth, s, pid, ne)
+                    lar, lag, lab, ph, alive_i, depth, s, pid, ne, *gacc)
 
-        jax.lax.while_loop(cond, body, carry0)
+        out = jax.lax.while_loop(cond, body, carry0)
 
-        # Reduce this tile's planes and accumulate into the SMEM outputs
-        # (grid steps run sequentially on a TPU core).
-        @pl.when(pl.program_id(0) == 0)
-        def _():
-            for o in range(n_obj):
-                for chn in range(3):
-                    galb_ref[o, chn] = jnp.sum(gacc[o * 3 + chn])
-                    gemi_ref[o, chn] = jnp.sum(
-                        gacc[n_obj * 3 + o * 3 + chn]
-                    )
-
-        @pl.when(pl.program_id(0) != 0)
-        def _():
-            for o in range(n_obj):
-                for chn in range(3):
-                    galb_ref[o, chn] = galb_ref[o, chn] + jnp.sum(
-                        gacc[o * 3 + chn]
-                    )
-                    gemi_ref[o, chn] = gemi_ref[o, chn] + jnp.sum(
-                        gacc[n_obj * 3 + o * 3 + chn]
-                    )
+        # This block's cotangent sums, one row per block: blocks run in
+        # parallel, and XLA sums the rows after the launch.
+        for k in range(n_acc):
+            gout_ref[0, k] = jnp.sum(out[n_state + k])
 
     return kernel, n_obj
 
@@ -893,8 +880,7 @@ def build_grad_kernel(scene: Scene, cam: CameraParams, cfg: RenderConfig):
 _CACHE: dict = {}
 
 
-def _geom_key(scene: Scene, cam: CameraParams, cfg: RenderConfig,
-              interpret: bool, tag: str):
+def _geom_key(scene: Scene, cam: CameraParams, cfg: RenderConfig, tag: str):
     h = hashlib.sha256()
     # Geometry + light(s) only — materials are runtime inputs. scene.lights
     # leaves are all geometry (corner/edges/obj_id), so the whole list goes
@@ -909,199 +895,117 @@ def _geom_key(scene: Scene, cam: CameraParams, cfg: RenderConfig,
         scene.lights,
     )):
         h.update(np.asarray(leaf).tobytes())
-    return (tag, h.hexdigest(), cfg, interpret)
+    return (tag, h.hexdigest(), cfg, route.platform(), route.block_lanes())
 
 
-def _lane_layout(cfg: RenderConfig):
-    from ..integrator.wavefront import lane_groups
-
-    n_pix = cfg.width * cfg.height
-    g = lane_groups(n_pix, cfg.spp, 1 << 18, cfg.regen_groups)
-    per = cfg.spp // g
-    n_lanes = n_pix * g
-    pad = (-n_lanes) % TILE
-    n_tiles = (n_lanes + pad) // TILE
-    return n_pix, g, per, n_lanes, pad, n_tiles
-
-
-def _lane_inputs(cfg: RenderConfig, n_pix, g, per, pad, n_tiles):
-    pix = jnp.repeat(jnp.arange(n_pix, dtype=jnp.uint32), g)
-    px = (pix % jnp.uint32(cfg.width)).astype(jnp.float32)
-    py = (pix // jnp.uint32(cfg.width)).astype(jnp.float32)
-    pid_base = pix * jnp.uint32(cfg.spp)
-    s_start = jnp.tile(
-        jnp.arange(g, dtype=jnp.uint32) * jnp.uint32(per), n_pix
-    )
-    s_stop = s_start + jnp.uint32(per)
-
-    def padto(x, fill):
-        return jnp.pad(x, (0, pad), constant_values=fill).reshape(
-            n_tiles * TILE_ROWS, 128
-        )
-
-    return pix, padto, (
-        padto(px, 0.0), padto(py, 0.0), padto(pid_base, 0),
-        padto(s_start, 0), padto(s_stop, 0),
-    )
+def launch_vjp(kernel, n_obj: int, n_blocks: int, seed, albedo, emission,
+               lanes, g_lanes):
+    """One adjoint-kernel launch over padded lanes with per-lane image
+    cotangents g_lanes (3 planes). Returns (d albedo (K, 3), d emission
+    (K, 3)): the per-block cotangent rows, summed by XLA."""
+    n_acc = 2 * n_obj * 3
+    rows = pl.pallas_call(
+        kernel,
+        grid=(n_blocks,),
+        in_specs=[pl.BlockSpec()] * 3 + [lane_spec()] * 8,
+        out_specs=pl.BlockSpec((1, n_acc), lambda i: (i, 0)),
+        out_shape=jax.ShapeDtypeStruct((n_blocks, n_acc), jnp.float32),
+        name="spt_material_vjp",
+        **route.pallas_call_kwargs(),
+    )(jnp.asarray(seed, jnp.uint32).reshape(1), albedo, emission, *lanes,
+      *g_lanes)
+    tot = rows.sum(axis=0)
+    return tot[:n_obj * 3].reshape(n_obj, 3), tot[n_obj * 3:].reshape(n_obj, 3)
 
 
 def render_pallas_mat(scene: Scene, cam: CameraParams, cfg: RenderConfig,
-                      albedo, emission, seed, interpret: bool = False):
+                      albedo, emission, seed):
     """Forward megakernel with RUNTIME materials: renders scene geometry
     with the given (K, 3) albedo/emission tables (pack_materials order).
     Bit-identical to render_pallas at equal materials; compiled once per
     geometry/config, so material-optimization loops do not recompile.
 
-    Returns ((h, w, 3) radiance SUM over spp, traces (2,))."""
-    if not interpret and jax.devices()[0].platform != "tpu":
-        interpret = True
-    key = _geom_key(scene, cam, cfg, interpret, "fwd_mat")
+    Returns ((h, w, 3) radiance SUM over spp, per-block trace rows as
+    render_pallas)."""
+    key = _geom_key(scene, cam, cfg, "fwd_mat")
     fn = _CACHE.get(key)
     if fn is None:
-        fn = _build_fwd_mat(scene, cam, cfg, interpret)
-        _CACHE[key] = fn
-    return fn(
+        fn = _CACHE[key] = _build_fwd_mat(scene, cam, cfg)
+    img, per_block = fn(
         jnp.asarray(albedo, jnp.float32), jnp.asarray(emission, jnp.float32),
         jnp.asarray(seed, jnp.uint32),
     )
+    return img, per_block
 
 
-def _build_fwd_mat(scene: Scene, cam: CameraParams, cfg: RenderConfig,
-                   interpret: bool):
-    n_pix, g, per, n_lanes, pad, n_tiles = _lane_layout(cfg)
+def _build_fwd_mat(scene: Scene, cam: CameraParams, cfg: RenderConfig):
     kernel = build_kernel(scene, cam, cfg, mat_refs=True)
-    block = pl.BlockSpec(
-        (TILE_ROWS, 128), lambda i: (i, 0), memory_space=pltpu.VMEM
-    )
+    n_pix = cfg.width * cfg.height
+    g, per, n_lanes, n_blocks = lane_layout(n_pix, cfg.spp, cfg.regen_groups)
 
     @jax.jit
     def run(albedo, emission, seed):
-        _, _, lanes = _lane_inputs(cfg, n_pix, g, per, pad, n_tiles)
-        lr, lg, lb, traces = pl.pallas_call(
-            kernel,
-            grid=(n_tiles,),
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.SMEM),  # seed
-                pl.BlockSpec(memory_space=pltpu.SMEM),  # albedo (K,3)
-                pl.BlockSpec(memory_space=pltpu.SMEM),  # emission (K,3)
-                block, block, block, block, block,
-            ],
-            out_specs=[
-                block, block, block,
-                pl.BlockSpec((1, 2), lambda i: (0, 0),
-                             memory_space=pltpu.SMEM),
-            ],
-            out_shape=[
-                jax.ShapeDtypeStruct((n_tiles * TILE_ROWS, 128), jnp.float32),
-                jax.ShapeDtypeStruct((n_tiles * TILE_ROWS, 128), jnp.float32),
-                jax.ShapeDtypeStruct((n_tiles * TILE_ROWS, 128), jnp.float32),
-                jax.ShapeDtypeStruct((1, 2), jnp.float32),
-            ],
-            interpret=interpret,
-        )(seed.reshape(1), albedo, emission, *lanes)
-        L = jnp.stack(
-            [lr.reshape(-1)[:n_lanes], lg.reshape(-1)[:n_lanes],
-             lb.reshape(-1)[:n_lanes]],
-            axis=-1,
-        )
-        img = L.reshape(n_pix, g, 3).sum(axis=1).reshape(
-            cfg.height, cfg.width, 3
-        )
-        return img, traces[0]
+        _, lanes = frame_lanes(cfg, n_pix, g, per, n_blocks)
+        L, traces = launch_forward(kernel, n_blocks, seed,
+                                   (albedo, emission), lanes)
+        img = L[:n_lanes].reshape(n_pix, g, 3).sum(axis=1)
+        return img.reshape(cfg.height, cfg.width, 3), traces
 
     return run
 
 
 def render_pallas_vjp(scene: Scene, cam: CameraParams, cfg: RenderConfig,
-                      albedo, emission, seed, g_img,
-                      interpret: bool = False):
+                      albedo, emission, seed, g_img):
     """Adjoint megakernel: cotangents of sum_px( g_img . I_sum ) where
     I_sum is render_pallas_mat's radiance SUM over spp.
 
     Returns (d/d albedo (K, 3), d/d emission (K, 3)) — pathwise, matching
     jax.grad through the jnp lax.scan wavefront (see module docstring)."""
-    if not interpret and jax.devices()[0].platform != "tpu":
-        interpret = True
-    key = _geom_key(scene, cam, cfg, interpret, "vjp")
+    key = _geom_key(scene, cam, cfg, "vjp")
     fn = _CACHE.get(key)
     if fn is None:
-        fn = _build_vjp(scene, cam, cfg, interpret)
-        _CACHE[key] = fn
+        fn = _CACHE[key] = _build_vjp(scene, cam, cfg)
     return fn(
         jnp.asarray(albedo, jnp.float32), jnp.asarray(emission, jnp.float32),
         jnp.asarray(seed, jnp.uint32), jnp.asarray(g_img, jnp.float32),
     )
 
 
-def _build_vjp(scene: Scene, cam: CameraParams, cfg: RenderConfig,
-               interpret: bool):
-    n_pix, g, per, n_lanes, pad, n_tiles = _lane_layout(cfg)
+def _build_vjp(scene: Scene, cam: CameraParams, cfg: RenderConfig):
     kernel, n_obj = build_grad_kernel(scene, cam, cfg)
-    block = pl.BlockSpec(
-        (TILE_ROWS, 128), lambda i: (i, 0), memory_space=pltpu.VMEM
-    )
+    n_pix = cfg.width * cfg.height
+    g, per, _, n_blocks = lane_layout(n_pix, cfg.spp, cfg.regen_groups)
 
     @jax.jit
     def run(albedo, emission, seed, g_img):
-        pix, padto, lanes = _lane_inputs(cfg, n_pix, g, per, pad, n_tiles)
-        gflat = g_img.reshape(n_pix, 3)
-        g_lane = gflat[pix]  # (n_lanes, 3) — lane cotangent = its pixel's
-        galb, gemi = pl.pallas_call(
-            kernel,
-            grid=(n_tiles,),
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.SMEM),  # seed
-                pl.BlockSpec(memory_space=pltpu.SMEM),  # albedo
-                pl.BlockSpec(memory_space=pltpu.SMEM),  # emission
-                block, block, block, block, block,      # lane assignment
-                block, block, block,                    # cotangent planes
-            ],
-            out_specs=[
-                pl.BlockSpec((n_obj, 3), lambda i: (0, 0),
-                             memory_space=pltpu.SMEM),
-                pl.BlockSpec((n_obj, 3), lambda i: (0, 0),
-                             memory_space=pltpu.SMEM),
-            ],
-            out_shape=[
-                jax.ShapeDtypeStruct((n_obj, 3), jnp.float32),
-                jax.ShapeDtypeStruct((n_obj, 3), jnp.float32),
-            ],
-            scratch_shapes=[
-                pltpu.VMEM((2 * n_obj * 3, TILE_ROWS, 128), jnp.float32),
-            ],
-            interpret=interpret,
-        )(
-            seed.reshape(1), albedo, emission, *lanes,
-            padto(g_lane[:, 0], 0.0), padto(g_lane[:, 1], 0.0),
-            padto(g_lane[:, 2], 0.0),
+        pix, lanes = frame_lanes(cfg, n_pix, g, per, n_blocks)
+        # Lane cotangent = its pixel's.
+        g_lane = g_img.reshape(-1, 3)[pix]
+        return launch_vjp(
+            kernel, n_obj, n_blocks, seed, albedo, emission, lanes,
+            [pad_lanes(g_lane[:, c], n_blocks) for c in range(3)],
         )
-        return galb, gemi
 
     return run
 
 
 def material_train_step_sharded(scene: Scene, cam: CameraParams,
-                                cfg: RenderConfig, mesh, target,
-                                interpret: bool = False):
-    """Sharded chip-speed material-fit step: ONE shard_map in which every
-    device (a) renders its (pixel-block x sample-range) lanes through the
+                                cfg: RenderConfig, mesh, target):
+    """Sharded material-fit step: ONE shard_map in which every device (a)
+    renders its (pixel-block x sample-range) lanes through the
     runtime-material forward kernel, (b) psums the partial image over the
     sample axis, (c) derives its local loss cotangent from its own pixel
     rows of ``target``, and (d) runs the adjoint kernel on the same
     lanes, psum-reducing the (K, 3) material cotangents over the whole
-    mesh (ICI) — the multi-chip form of loss_and_material_grads, so
+    mesh — the multi-device form of loss_and_material_grads, so
     ``fit --pallas`` scales like the forward renderer.
 
     Returns step(albedo, emission, seed) -> (loss, galb, gemi); compiled
     once per (geometry, cfg, mesh)."""
-    import math as _math
-
     from jax.sharding import PartitionSpec as P
 
     from ..parallel.mesh import AXIS_PIXEL, AXIS_SAMPLE
 
-    if not interpret and jax.devices()[0].platform != "tpu":
-        interpret = True
     n_sp = mesh.shape[AXIS_PIXEL]
     n_dp = mesh.shape[AXIS_SAMPLE]
     n_pix = cfg.width * cfg.height
@@ -1110,21 +1014,11 @@ def material_train_step_sharded(scene: Scene, cam: CameraParams,
         raise ValueError(f"{n_pix=} % {n_sp=} or {spp=} % {n_dp=} != 0")
     n_pix_loc = n_pix // n_sp
     n_s_loc = spp // n_dp
-
-    from ..integrator.wavefront import lane_groups
-
-    g = lane_groups(n_pix_loc, n_s_loc, 1 << 18, cfg.regen_groups)
-    per = n_s_loc // g
-    n_lanes = n_pix_loc * g
-    pad = (-n_lanes) % TILE
-    n_tiles = (n_lanes + pad) // TILE
+    g, per, n_lanes, n_blocks = lane_layout(n_pix_loc, n_s_loc,
+                                            cfg.regen_groups)
 
     fwd_kernel = build_kernel(scene, cam, cfg, mat_refs=True)
     grad_kernel, n_obj = build_grad_kernel(scene, cam, cfg)
-    block = pl.BlockSpec(
-        (TILE_ROWS, 128), lambda i: (i, 0), memory_space=pltpu.VMEM
-    )
-    smem = pl.BlockSpec(memory_space=pltpu.SMEM)
     target = jnp.asarray(target, jnp.float32).reshape(n_pix, 3)
     inv_n = np.float32(2.0 / (n_pix * 3 * spp))
 
@@ -1135,50 +1029,10 @@ def material_train_step_sharded(scene: Scene, cam: CameraParams,
         samp0 = (
             jax.lax.axis_index(AXIS_SAMPLE) * n_s_loc
         ).astype(jnp.uint32)
-        pix = pix0 + jnp.repeat(jnp.arange(n_pix_loc, dtype=jnp.uint32), g)
-        px = (pix % jnp.uint32(cfg.width)).astype(jnp.float32)
-        py = (pix // jnp.uint32(cfg.width)).astype(jnp.float32)
-        pid_base = pix * jnp.uint32(cfg.spp)
-        s_start = samp0 + jnp.tile(
-            jnp.arange(g, dtype=jnp.uint32) * jnp.uint32(per), n_pix_loc
-        )
-        s_stop = s_start + jnp.uint32(per)
-
-        def padto(x, fill):
-            return jnp.pad(x, (0, pad), constant_values=fill).reshape(
-                n_tiles * TILE_ROWS, 128
-            )
-
-        lanes = (
-            padto(px, 0.0), padto(py, 0.0), padto(pid_base, 0),
-            padto(s_start, 0), padto(s_stop, 0),
-        )
-        lr, lg, lb, _tr = pl.pallas_call(
-            fwd_kernel,
-            grid=(n_tiles,),
-            in_specs=[smem, smem, smem, block, block, block, block, block],
-            out_specs=[
-                block, block, block,
-                pl.BlockSpec((1, 2), lambda i: (0, 0),
-                             memory_space=pltpu.SMEM),
-            ],
-            out_shape=[
-                jax.ShapeDtypeStruct((n_tiles * TILE_ROWS, 128),
-                                     jnp.float32),
-                jax.ShapeDtypeStruct((n_tiles * TILE_ROWS, 128),
-                                     jnp.float32),
-                jax.ShapeDtypeStruct((n_tiles * TILE_ROWS, 128),
-                                     jnp.float32),
-                jax.ShapeDtypeStruct((1, 2), jnp.float32),
-            ],
-            interpret=interpret,
-        )(seed.reshape(1), albedo, emission, *lanes)
-        L = jnp.stack(
-            [lr.reshape(-1)[:n_lanes], lg.reshape(-1)[:n_lanes],
-             lb.reshape(-1)[:n_lanes]],
-            axis=-1,
-        )
-        img_loc = L.reshape(n_pix_loc, g, 3).sum(axis=1)
+        _, lanes = frame_lanes(cfg, n_pix_loc, g, per, n_blocks, pix0, samp0)
+        L, _ = launch_forward(fwd_kernel, n_blocks, seed,
+                              (albedo, emission), lanes)
+        img_loc = L[:n_lanes].reshape(n_pix_loc, g, 3).sum(axis=1)
         img_loc = jax.lax.psum(img_loc, AXIS_SAMPLE)  # sum over spp
         diff = img_loc / np.float32(spp) - tgt_loc
         loss_loc = jnp.sum(diff * diff) / np.float32(n_pix * 3)
@@ -1192,30 +1046,9 @@ def material_train_step_sharded(scene: Scene, cam: CameraParams,
         g_lane = (diff * inv_n)[
             jnp.repeat(jnp.arange(n_pix_loc, dtype=jnp.int32), g)
         ]
-        galb, gemi = pl.pallas_call(
-            grad_kernel,
-            grid=(n_tiles,),
-            in_specs=[smem, smem, smem,
-                      block, block, block, block, block,
-                      block, block, block],
-            out_specs=[
-                pl.BlockSpec((n_obj, 3), lambda i: (0, 0),
-                             memory_space=pltpu.SMEM),
-                pl.BlockSpec((n_obj, 3), lambda i: (0, 0),
-                             memory_space=pltpu.SMEM),
-            ],
-            out_shape=[
-                jax.ShapeDtypeStruct((n_obj, 3), jnp.float32),
-                jax.ShapeDtypeStruct((n_obj, 3), jnp.float32),
-            ],
-            scratch_shapes=[
-                pltpu.VMEM((2 * n_obj * 3, TILE_ROWS, 128), jnp.float32),
-            ],
-            interpret=interpret,
-        )(
-            seed.reshape(1), albedo, emission, *lanes,
-            padto(g_lane[:, 0], 0.0), padto(g_lane[:, 1], 0.0),
-            padto(g_lane[:, 2], 0.0),
+        galb, gemi = launch_vjp(
+            grad_kernel, n_obj, n_blocks, seed, albedo, emission, lanes,
+            [pad_lanes(g_lane[:, c], n_blocks) for c in range(3)],
         )
         galb = jax.lax.psum(galb, (AXIS_PIXEL, AXIS_SAMPLE))
         gemi = jax.lax.psum(gemi, (AXIS_PIXEL, AXIS_SAMPLE))
@@ -1239,14 +1072,12 @@ def material_train_step_sharded(scene: Scene, cam: CameraParams,
 
 
 def loss_and_material_grads(scene: Scene, cam: CameraParams,
-                            cfg: RenderConfig, seed, target,
-                            interpret: bool = False):
-    """One chip-speed training evaluation: MSE of the linear mean image vs
+                            cfg: RenderConfig, seed, target):
+    """One kernel-path training evaluation: MSE of the linear mean image vs
     ``target`` (h, w, 3), with albedo/emission gradients from the adjoint
     kernel. Returns (loss, galb (K,3), gemi (K,3))."""
     alb, emi = pack_materials(scene)
-    img_sum, _ = render_pallas_mat(scene, cam, cfg, alb, emi, seed,
-                                   interpret)
+    img_sum, _ = render_pallas_mat(scene, cam, cfg, alb, emi, seed)
     spp = cfg.spp
     img = img_sum / spp
     target = jnp.asarray(target, jnp.float32)
@@ -1254,15 +1085,14 @@ def loss_and_material_grads(scene: Scene, cam: CameraParams,
     loss = jnp.mean(diff * diff)
     # d loss / d img_sum = 2*diff / (h*w*3) / spp.
     g_img = diff * (2.0 / (diff.size * spp))
-    galb, gemi = render_pallas_vjp(scene, cam, cfg, alb, emi, seed, g_img,
-                                   interpret)
+    galb, gemi = render_pallas_vjp(scene, cam, cfg, alb, emi, seed, g_img)
     return loss, galb, gemi
 
 
 def fit_pallas(scene: Scene, cam: CameraParams, cfg: RenderConfig, target,
                steps: int = 20, lr: float = 1.0,
                train_fields: tuple[str, ...] = ("emission", "albedo"),
-               seed: int = 0, interpret: bool = False, log=None,
+               seed: int = 0, log=None,
                checkpoint: str | None = None, checkpoint_every: int = 0):
     """Kernel-path inverse rendering: SGD on the material tables through
     the forward+adjoint megakernels. Both kernels compile once (materials
@@ -1295,7 +1125,7 @@ def fit_pallas(scene: Scene, cam: CameraParams, cfg: RenderConfig, target,
     for i in range(start, steps):
         s = unpack_materials(scene, alb, emi)
         loss, galb, gemi = loss_and_material_grads(
-            s, cam, cfg, jnp.uint32(seed), target, interpret
+            s, cam, cfg, jnp.uint32(seed), target
         )
         if "albedo" in train_fields:
             alb = alb - lr * galb

@@ -8,7 +8,7 @@ parallel axes are the image (pixels) and samples-per-pixel; we map them onto a
     axis "sp" — shards pixels (the "sequence/spatial-parallel" analogue),
     axis "dp" — shards samples per pixel (the data-parallel analogue).
 
-Per-pixel radiance partial sums reduce over "dp" with an ICI ``psum``; scene
+Per-pixel radiance partial sums reduce over "dp" with one ``psum``; scene
 parameters are tiny (17 objects) and stay replicated, so scene-gradient
 all-reduce is a single small ``psum`` over the whole mesh.
 """

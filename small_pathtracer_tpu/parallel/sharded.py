@@ -1,8 +1,8 @@
 """Distributed rendering: shard_map over a (sp=pixels, dp=samples) mesh.
 
-TPU-native scaling design (SURVEY.md sections 2.2/5.7/7): the (pixel, sample)
-grid is the only parallel axis a path tracer has; we shard it over the mesh
-and let XLA place the collectives on ICI:
+Scaling design (SURVEY.md sections 2.2/5.7/7): the (pixel, sample) grid is
+the only parallel axis a path tracer has; we shard it over the mesh and let
+XLA place the collectives (NCCL on GPUs):
 
 - ray generation happens *inside* the shard (SPMD): each device derives its
   global pixel/sample block from ``jax.lax.axis_index`` — no host-side

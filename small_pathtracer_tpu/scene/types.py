@@ -1,6 +1,6 @@
 """Scene representation: struct-of-arrays pytrees, one block per primitive type.
 
-TPU-native replacement for the reference's ``Hitable*`` vtable array
+Array-native replacement for the reference's ``Hitable*`` vtable array
 (/root/reference/src/smallpt.cpp:82-90, 287-311): no virtual dispatch — each
 primitive family is a batched array block and intersection is branch-free
 vectorized math with a select over the object axis.

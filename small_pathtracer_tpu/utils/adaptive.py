@@ -98,12 +98,13 @@ def adaptive_render(scene: Scene, cam: CameraParams, cfg: RenderConfig,
     waves = 0
 
     if cfg.use_pallas:
-        from ..ops.megakernel import render_pallas_budgets
+        from ..ops.megakernel import render_pallas_budgets, trace_totals
 
         def run_wave(s_start, s_stop):
-            return render_pallas_budgets(
+            L, per_block = render_pallas_budgets(
                 scene, cam, cfg, cfg.seed, s_start, s_stop
             )
+            return L, trace_totals(per_block)
     else:
         def run_wave(s_start, s_stop):
             return _wave_jnp_jit(

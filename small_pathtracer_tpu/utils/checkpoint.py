@@ -96,9 +96,7 @@ def _render_span(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
 def render_with_checkpoints(scene: Scene, cam: CameraParams,
                             cfg: RenderConfig, ckpt_path: str,
                             every_spp: int = 0, mesh=None,
-                            preview_path: str = "", guide=None,
-                            guide_beta: float = 0.5,
-                            guide_k: float = 8.0):
+                            preview_path: str = ""):
     """Chunked render that saves resumable state every ``every_spp`` samples
     (0 = only at completion) and resumes from ``ckpt_path`` if present.
 
@@ -117,17 +115,7 @@ def render_with_checkpoints(scene: Scene, cam: CameraParams,
     the image in memory until the one final write, smallpt.cpp:548-551).
     ``ckpt_path`` may be "" for a progressive render with no resume state.
 
-    guide: optional (mu (V,3), use (V,)) voxel lobe table
-    (experiment/path_guiding.guide_lobes) - spans render through the
-    GUIDED megakernel (requires cfg.use_pallas; composes with mesh),
-    closing the --guided x --checkpoint/--preview/--mesh cells.
-
     Returns (finalized (h, w, 3) image, total traces)."""
-    if guide is not None and not cfg.use_pallas:
-        raise ValueError(
-            "guided checkpoint/preview/mesh renders run through the "
-            "guided megakernel; set use_pallas=True (CLI: --pallas)"
-        )
     fp = _fingerprint(scene, cam, cfg)
     st = load_state(ckpt_path, fp) if ckpt_path else None
     if st is not None:
@@ -148,33 +136,20 @@ def render_with_checkpoints(scene: Scene, cam: CameraParams,
     seed = jnp.uint32(cfg.seed)
     while spp_done < cfg.spp:
         n_s = min(step, cfg.spp - spp_done)
-        if guide is not None and mesh is not None:
-            from ..ops.megakernel import render_pallas_guided_sharded
-
-            L, tr = render_pallas_guided_sharded(
-                scene, cam, cfg, mesh, seed, guide, guide_beta, guide_k,
-                s0=spp_done, n_s=n_s,
-            )
-        elif guide is not None:
-            from ..ops.megakernel import render_pallas_guided
-
-            L, tr = render_pallas_guided(
-                scene, cam, cfg, seed, guide, guide_beta, guide_k,
-                s0=jnp.uint32(spp_done), n_s=n_s,
-            )
-            L = L.reshape(-1, 3)
-        elif cfg.use_pallas and mesh is not None:
-            from ..ops.megakernel import render_pallas_sharded
+        if cfg.use_pallas and mesh is not None:
+            from ..ops.megakernel import render_pallas_sharded, trace_totals
 
             L, tr = render_pallas_sharded(
                 scene, cam, cfg, mesh, seed, s0=spp_done, n_s=n_s
             )
+            tr = trace_totals(tr)
         elif cfg.use_pallas:
-            from ..ops.megakernel import render_pallas_span
+            from ..ops.megakernel import render_pallas_span, trace_totals
 
             L, tr = render_pallas_span(
                 scene, cam, cfg, seed, jnp.uint32(spp_done), n_s
             )
+            tr = trace_totals(tr)
         elif mesh is not None:
             from ..parallel.sharded import render_chunk_sharded
 
@@ -222,9 +197,9 @@ def _write_preview(path: str, acc: np.ndarray, spp_done: int,
         if ext == ".ppm":
             film.write_ppm(tmp, u8)
         else:
-            from PIL import Image
+            from ..core.imageio import write_image
 
-            Image.fromarray(u8).save(tmp, format=ext.lstrip(".").upper())
+            write_image(tmp, u8, ext)
         os.replace(tmp, path)
     except BaseException:
         if os.path.exists(tmp):

@@ -1,6 +1,6 @@
 """Edge-aware a-trous wavelet denoiser for Monte-Carlo renders.
 
-A TPU-friendly reconstruction filter in the style of Dammertz et al. 2010
+A vectorized reconstruction filter in the style of Dammertz et al. 2010
 ("Edge-Avoiding A-Trous Wavelet Transform for Fast Global Illumination
 Filtering") with SVGF-flavored edge-stopping weights (Schied et al. 2017),
 guided by the first-hit feature buffers of ``utils/aov.py``:
@@ -18,10 +18,10 @@ guided by the first-hit feature buffers of ``utils/aov.py``:
   so unconverged spiky regions smooth hard while converged detail is kept.
 
 Everything is elementwise/shift jnp — XLA fuses each pass into a handful of
-VPU loops; there are no gathers and no data-dependent shapes. The reference
+loops; there are no gathers and no data-dependent shapes. The reference
 has no denoiser (its answer to noise is more spp, smallpt.cpp:508); this is
-framework surface for the quality-per-second regime the TPU's throughput
-opens up (hundreds of spp land in <1 s, a filtered 32-spp render lands in
+framework surface for the quality-per-second regime an accelerator's
+throughput opens up (hundreds of spp land in <1 s, a filtered 32-spp render lands in
 milliseconds at a quality a raw render needs ~8x the samples for: at 96x72
 a filtered 4-spp Cornell render has lower MSE vs a 256-spp target than a raw
 32-spp render — measured in tests/test_denoise.py and PERF.md).

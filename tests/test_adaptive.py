@@ -20,6 +20,7 @@ import jax.numpy as jnp
 from small_pathtracer_tpu import RenderConfig, get_scene, make_camera
 from small_pathtracer_tpu.integrator import wavefront
 from small_pathtracer_tpu.utils.adaptive import adaptive_render
+from small_pathtracer_tpu.ops.megakernel import trace_totals
 
 
 @pytest.fixture(scope="module")
@@ -81,7 +82,8 @@ def test_budgets_kernel_matches_jnp(scene, cam):
     a, ta = _wave_jnp_jit(scene, cam, cfg, jnp.uint32(cfg.seed),
                           jnp.asarray(s_start), jnp.asarray(s_stop))
     b, tb = render_pallas_budgets(scene, cam, cfg, cfg.seed,
-                                  s_start, s_stop, interpret=True)
+                                  s_start, s_stop)
+    tb = trace_totals(tb)
     np.testing.assert_array_equal(np.asarray(ta), np.asarray(tb))
     np.testing.assert_allclose(np.asarray(a), np.asarray(b),
                                rtol=1e-4, atol=1e-4)

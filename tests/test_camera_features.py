@@ -19,7 +19,7 @@ from small_pathtracer_tpu.camera.pinhole import (
     primary_rays,
 )
 from small_pathtracer_tpu.integrator.wavefront import render_regen
-from small_pathtracer_tpu.ops.megakernel import render_pallas
+from small_pathtracer_tpu.ops.megakernel import render_pallas, trace_totals
 
 
 class TestTentFilter:
@@ -52,7 +52,8 @@ class TestTentFilter:
         cfg = RenderConfig(width=24, height=16, spp=4, estimator="nee",
                            seed=5, pixel_filter="tent")
         a, ta = render_regen(scene, cam, cfg, jnp.uint32(5))
-        b, tb = render_pallas(scene, cam, cfg, 5, interpret=True)
+        b, tb = render_pallas(scene, cam, cfg, 5)
+        tb = trace_totals(tb)
         np.testing.assert_array_equal(np.asarray(ta), np.asarray(tb))
         np.testing.assert_allclose(
             np.asarray(a), np.asarray(b), rtol=1e-4, atol=1e-4
@@ -132,7 +133,8 @@ class TestThinLens:
         cfg = RenderConfig(width=24, height=16, spp=4, estimator="nee",
                            seed=9, aperture=3.0, focus_dist=120.0)
         a, ta = render_regen(scene, cam, cfg, jnp.uint32(9))
-        b, tb = render_pallas(scene, cam, cfg, 9, interpret=True)
+        b, tb = render_pallas(scene, cam, cfg, 9)
+        tb = trace_totals(tb)
         np.testing.assert_array_equal(np.asarray(ta), np.asarray(tb))
         np.testing.assert_allclose(
             np.asarray(a), np.asarray(b), rtol=1e-4, atol=1e-4

@@ -75,10 +75,9 @@ def test_render_denoise_and_aov(tmp_path):
     assert float(raw["coverage"].min()) == 1.0
 
 
-@pytest.mark.parametrize("extra", [[], ["--pallas"]])
+@pytest.mark.parametrize("extra", [[]])
 def test_render_guided(tmp_path, extra):
-    """render --guided: train-then-render through the jnp estimator and
-    the fused kernel (interpret mode on CPU)."""
+    """render --guided: train-then-render through the jnp estimator."""
     out = tmp_path / "img.ppm"
     rc = main([
         "render", "--width", "32", "--height", "24", "--spp", "4",
@@ -91,13 +90,35 @@ def test_render_guided(tmp_path, extra):
     assert img.max() > 100
 
 
-def test_render_guided_rejects_nee(tmp_path):
-    with pytest.raises(SystemExit, match="cosine, nee_textbook, or mis"):
+def test_render_guided_rejects_nee(tmp_path, capsys):
+    with pytest.raises(SystemExit) as e:
         main([
             "render", "--width", "32", "--height", "24", "--spp", "4",
             "--estimator", "nee", "--guided",
             "-o", str(tmp_path / "x.ppm"),
         ])
+    assert e.value.code == 2
+    assert "cosine or nee_textbook" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("extra,message", [
+    (["--pallas"], "drop --pallas"),
+    (["--estimator", "mis"], "cosine or nee_textbook"),
+    (["--mesh", "2x1"], "--checkpoint/--mesh/--preview"),
+    (["--checkpoint", "ck.npz"], "--checkpoint/--mesh/--preview"),
+    (["--preview", "p.ppm"], "--checkpoint/--mesh/--preview"),
+])
+def test_render_guided_refusals(tmp_path, capsys, extra, message):
+    """The guided estimator has no kernel form: --guided with --pallas,
+    with mis, or with --mesh/--checkpoint/--preview is an argparse error
+    before any compute."""
+    args = ["render", "--width", "8", "--height", "8", "--spp", "1",
+            "--estimator", "cosine", "--guided",
+            "-o", str(tmp_path / "x.ppm")]
+    with pytest.raises(SystemExit) as e:
+        main(args + extra)
+    assert e.value.code == 2
+    assert message in capsys.readouterr().err
 
 
 def test_render_distributed_mesh(tmp_path):
@@ -444,6 +465,17 @@ def test_fit_pallas_geometry_whole_table(capsys):
     assert rc == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert np.isfinite(out["final_loss"])
+
+
+def test_fit_pallas_geometry_refuses_large_table():
+    """fit --pallas geometry on more spheres than the kernel takes exits
+    with a message before any compute."""
+    with pytest.raises(SystemExit, match="at most"):
+        main([
+            "fit", "--scene", "sphere_grid_256", "--width", "8",
+            "--height", "8", "--spp", "1", "--steps", "1", "--pallas",
+            "--train", "center",
+        ])
 
 
 def test_fit_soft_geometry(capsys):

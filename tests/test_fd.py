@@ -25,7 +25,7 @@ def setup():
     cam = make_camera(aspect=W / H)
     cfg = _table_cfg(RenderConfig(width=W, height=H, spp=SPP,
                                   estimator="nee", seed=3))
-    target = _render_mean(scene, cam, cfg, 3, True)
+    target = _render_mean(scene, cam, cfg, 3)
     return scene, cam, cfg, target
 
 
@@ -35,14 +35,14 @@ def test_gradient_points_downhill(setup):
         center=scene.spheres.center.at[0].add(jnp.asarray([4.0, 0.0, -3.0]))
     ))
     loss0, g = fd_loss_and_grad(bad, cam, cfg, target, 0, ("center",),
-                                delta=0.75, seed=3, interpret=True)
+                                delta=0.75, seed=3)
     # One SGD step along -g must reduce the CRN loss.
     stepped = bad._replace(spheres=bad.spheres._replace(
         center=bad.spheres.center.at[0].add(
             jnp.asarray(-3000.0 * g["center"], jnp.float32))
     ))
     loss1, _ = fd_loss_and_grad(stepped, cam, cfg, target, 0, ("center",),
-                                delta=0.75, seed=3, interpret=True)
+                                delta=0.75, seed=3)
     assert loss1 < loss0, (loss0, loss1)
 
 
@@ -59,8 +59,7 @@ def test_recovers_displaced_sphere(setup):
         radius=scene.spheres.radius.at[0].multiply(1.1),
     ))
     s, losses = fit_fd(bad, cam, cfg, target, 0, ("center", "radius"),
-                       steps=12, lr=1.5, delta=0.75, seed=3,
-                       interpret=True)
+                       steps=12, lr=1.5, delta=0.75, seed=3)
     assert min(losses) < losses[0] / 1.35, losses
     r_true = float(scene.spheres.radius[0])
     assert abs(float(s.spheres.radius[0]) - r_true) < 0.6
@@ -78,8 +77,8 @@ def test_no_recompile_across_probes(setup):
 
     scene, cam, cfg, target = setup
     # Warm the cache with one render of this exact config.
-    _render_mean(scene, cam, cfg, 3, True)
+    _render_mean(scene, cam, cfg, 3)
     n_built = len(mk._CACHE)
     fd_loss_and_grad(scene, cam, cfg, target, 0, ("center", "radius"),
-                     delta=0.5, seed=3, interpret=True)
+                     delta=0.5, seed=3)
     assert len(mk._CACHE) == n_built

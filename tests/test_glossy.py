@@ -37,7 +37,7 @@ from small_pathtracer_tpu.integrator import sampling
 from small_pathtracer_tpu.integrator.wavefront import (
     _chunk_paths, path_trace_fixed, render, render_regen,
 )
-from small_pathtracer_tpu.ops.megakernel import render_pallas
+from small_pathtracer_tpu.ops.megakernel import render_pallas, trace_totals
 from small_pathtracer_tpu.scene.types import GLOS
 
 
@@ -198,8 +198,8 @@ class TestGlossyKernelParity:
                 glossy_rect_scene, cam, cfg, jnp.uint32(3)
             )
             img_k, tr_k = render_pallas(
-                glossy_rect_scene, cam, cfg, 3, interpret=True
-            )
+                glossy_rect_scene, cam, cfg, 3)
+            tr_k = trace_totals(tr_k)
             np.testing.assert_array_equal(
                 np.asarray(tr_j), np.asarray(tr_k), err_msg=est
             )
@@ -218,7 +218,8 @@ class TestGlossyKernelParity:
             width=24, height=16, spp=8, estimator="mis", seed=3
         )
         img_j, tr_j = render_regen(s, cam, cfg, jnp.uint32(3))
-        img_k, tr_k = render_pallas(s, cam, cfg, 3, interpret=True)
+        img_k, tr_k = render_pallas(s, cam, cfg, 3)
+        tr_k = trace_totals(tr_k)
         np.testing.assert_allclose(
             np.asarray(tr_j), np.asarray(tr_k), rtol=2e-2
         )

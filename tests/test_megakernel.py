@@ -1,4 +1,4 @@
-"""Pallas megakernel parity vs the jnp wavefront (interpret mode on CPU).
+"""Pallas megakernel parity vs the jnp wavefront (interpreter on the CPU).
 
 The box scene must match bit-for-bit-level (identical RNG + identical float
 expression trees => identical trace counts); the sphere scene is allowed
@@ -12,7 +12,7 @@ import jax.numpy as jnp
 
 from small_pathtracer_tpu import RenderConfig, get_scene, make_camera
 from small_pathtracer_tpu.integrator.wavefront import render_regen
-from small_pathtracer_tpu.ops.megakernel import render_pallas
+from small_pathtracer_tpu.ops.megakernel import render_pallas, trace_totals
 
 
 @pytest.mark.parametrize("est", ["nee", "cosine", "uniform", "mixture",
@@ -22,7 +22,8 @@ def test_box_scene_matches_jnp(est):
     cam = make_camera()
     cfg = RenderConfig(width=32, height=24, spp=4, estimator=est, seed=3)
     a, ta = render_regen(scene, cam, cfg, jnp.uint32(3))
-    b, tb = render_pallas(scene, cam, cfg, 3, interpret=True)
+    b, tb = render_pallas(scene, cam, cfg, 3)
+    tb = trace_totals(tb)
     # Both extend and probe counters must match exactly.
     np.testing.assert_array_equal(np.asarray(ta), np.asarray(tb))
     np.testing.assert_allclose(
@@ -48,7 +49,8 @@ def test_twolights_matches_jnp(est, sel):
         width=24, height=24, spp=4, estimator=est, seed=3, light_select=sel
     )
     a, ta = render_regen(scene, cam, cfg, jnp.uint32(3))
-    b, tb = render_pallas(scene, cam, cfg, 3, interpret=True)
+    b, tb = render_pallas(scene, cam, cfg, 3)
+    tb = trace_totals(tb)
     np.testing.assert_array_equal(np.asarray(ta), np.asarray(tb))
     np.testing.assert_allclose(
         np.asarray(a), np.asarray(b), rtol=1e-4, atol=1e-4
@@ -65,7 +67,8 @@ def test_box_scene_matches_jnp_sobol(est):
     cfg = RenderConfig(width=32, height=24, spp=4, estimator=est, seed=3,
                        sampler="sobol")
     a, ta = render_regen(scene, cam, cfg, jnp.uint32(3))
-    b, tb = render_pallas(scene, cam, cfg, 3, interpret=True)
+    b, tb = render_pallas(scene, cam, cfg, 3)
+    tb = trace_totals(tb)
     np.testing.assert_array_equal(np.asarray(ta), np.asarray(tb))
     # The sobol sequence happens to include one grazing NEE sample whose
     # radiance flips by ~3e-4 with XLA CPU fusion/FMA contraction (the
@@ -84,7 +87,7 @@ def test_sphere_scene_statistical():
     cam = make_camera()
     cfg = RenderConfig(width=32, height=32, spp=16, estimator="nee", seed=3)
     a, _ = render_regen(scene, cam, cfg, jnp.uint32(3))
-    b, _ = render_pallas(scene, cam, cfg, 3, interpret=True)
+    b, _ = render_pallas(scene, cam, cfg, 3)
     a = np.asarray(a) / cfg.spp
     b = np.asarray(b) / cfg.spp
     assert abs(a.mean() - b.mean()) < 5e-3
@@ -101,7 +104,8 @@ def test_spec_refr_scene():
     cam = make_camera()
     cfg = RenderConfig(width=32, height=32, spp=8, estimator="cosine", seed=5)
     a, ta = render_regen(scene, cam, cfg, jnp.uint32(5))
-    b, tb = render_pallas(scene, cam, cfg, 5, interpret=True)
+    b, tb = render_pallas(scene, cam, cfg, 5)
+    tb = trace_totals(tb)
     a = np.asarray(a) / cfg.spp
     b = np.asarray(b) / cfg.spp
     assert abs(a.mean() - b.mean()) < 1e-2
@@ -122,9 +126,11 @@ def test_sharded_megakernel_matches_single(mesh_shape):
     scene = get_scene("cornell_box")
     cam = make_camera()
     cfg = RenderConfig(width=32, height=24, spp=8, estimator="nee", seed=3)
-    a, ta = render_pallas(scene, cam, cfg, 3, interpret=True)
+    a, ta = render_pallas(scene, cam, cfg, 3)
+    ta = trace_totals(ta)
     mesh = make_mesh(mesh_shape=mesh_shape)
-    b, tb = render_pallas_sharded(scene, cam, cfg, mesh, 3, interpret=True)
+    b, tb = render_pallas_sharded(scene, cam, cfg, mesh, 3)
+    tb = trace_totals(tb)
     np.testing.assert_array_equal(np.asarray(ta), np.asarray(tb))
     np.testing.assert_allclose(
         np.asarray(a), np.asarray(b).reshape(24, 32, 3), atol=1e-5
@@ -137,7 +143,8 @@ def test_tilted_light_quad_scene():
     cam = make_camera()
     cfg = RenderConfig(width=32, height=32, spp=8, estimator="nee", seed=1)
     a, ta = render_regen(scene, cam, cfg, jnp.uint32(1))
-    b, tb = render_pallas(scene, cam, cfg, 1, interpret=True)
+    b, tb = render_pallas(scene, cam, cfg, 1)
+    tb = trace_totals(tb)
     a = np.asarray(a) / cfg.spp
     b = np.asarray(b) / cfg.spp
     # Gram-solve rounding differs (reciprocal-multiply constants), so
@@ -159,7 +166,8 @@ def test_max_bounces_cap_consistent_across_schedules():
 
     a, ta = spt.render(scene, cam, dataclasses.replace(base, wavefront="scan"))
     b, tb = spt.render(scene, cam, dataclasses.replace(base, wavefront="regen"))
-    c, tc = render_pallas(scene, cam, base, base.seed, interpret=True)
+    c, tc = render_pallas(scene, cam, base, base.seed)
+    tc = trace_totals(tc)
     np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-5)
     assert ta == tb == float(tc.sum())
     # And the cap bites: uncapped render differs.
@@ -181,7 +189,8 @@ def test_sphere_grid_scalability():
     cam = make_camera()
     cfg = RenderConfig(width=24, height=24, spp=4, estimator="nee", seed=4)
     a, ta = render_regen(scene, cam, cfg, jnp.uint32(4))
-    b, tb = render_pallas(scene, cam, cfg, 4, interpret=True)
+    b, tb = render_pallas(scene, cam, cfg, 4)
+    tb = trace_totals(tb)
     a = np.asarray(a) / cfg.spp
     b = np.asarray(b) / cfg.spp
     assert np.all(np.isfinite(a)) and np.all(np.isfinite(b))
@@ -201,7 +210,8 @@ def test_packed_rng_backend_matches_jnp_and_is_unbiased():
     cfg = RenderConfig(width=32, height=24, spp=8, estimator="nee", seed=3,
                        rng_backend="mix_packed")
     a, ta = render_regen(scene, cam, cfg, jnp.uint32(3))
-    b, tb = render_pallas(scene, cam, cfg, 3, interpret=True)
+    b, tb = render_pallas(scene, cam, cfg, 3)
+    tb = trace_totals(tb)
     np.testing.assert_array_equal(np.asarray(ta), np.asarray(tb))
     np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-4,
                                atol=1e-4)
@@ -229,7 +239,8 @@ def test_nee_textbook_ignores_glibc_mode():
                          estimator="nee_textbook", seed=3,
                          light_sample_mode="glibc_overflow")
     a, ta = render_regen(scene, cam, cfg_g, jnp.uint32(3))
-    b, tb = render_pallas(scene, cam, cfg_g, 3, interpret=True)
+    b, tb = render_pallas(scene, cam, cfg_g, 3)
+    tb = trace_totals(tb)
     np.testing.assert_array_equal(np.asarray(ta), np.asarray(tb))
     np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-3)
     # And the mode is a no-op for the textbook estimator.
@@ -248,7 +259,8 @@ def test_nee_textbook_kernel_matches_jnp():
                        seed=3)
     scene = get_scene("cornell_box")
     a, ta = render_regen(scene, cam, cfg, jnp.uint32(3))
-    b, tb = render_pallas(scene, cam, cfg, 3, interpret=True)
+    b, tb = render_pallas(scene, cam, cfg, 3)
+    tb = trace_totals(tb)
     np.testing.assert_array_equal(np.asarray(ta), np.asarray(tb))
     np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-3)
 
@@ -265,21 +277,22 @@ def test_nee_fold_bit_identical(preset, est, lsm, monkeypatch):
     """The NEE continuation fold (ops/megakernel.build_kernel: a successful
     probe + zero-albedo light resolve the next bounce analytically) is a
     pure scheduling optimization: image AND both trace counters must be
-    bit-identical with the fold disabled (~1.25x fewer loop iterations at
-    the north-star config on a v5e, PERF.md)."""
+    bit-identical with the fold disabled."""
     scene = get_scene(preset)
     cam = make_camera(aspect=32 / 24)
     cfg = RenderConfig(width=32, height=24, spp=4, estimator=est, seed=5,
                        light_sample_mode=lsm)
-    a, ta = render_pallas(scene, cam, cfg, 5, interpret=True)
+    a, ta = render_pallas(scene, cam, cfg, 5)
+    ta = trace_totals(ta)
     monkeypatch.setenv("SPT_NO_NEE_FOLD", "1")
-    b, tb = render_pallas(scene, cam, cfg, 5, interpret=True)
+    b, tb = render_pallas(scene, cam, cfg, 5)
+    tb = trace_totals(tb)
     np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
     np.testing.assert_array_equal(np.asarray(ta), np.asarray(tb))
 
 
 class TestSphereTable:
-    """Scalable-scene mode: the megakernel's looped SMEM sphere table
+    """Scalable-scene mode: the megakernel's looped runtime sphere table
     (build_kernel sphere_tab=True) vs full unrolling. Same estimator,
     same scan order; equality is statistical — the compiler contracts the
     sphere discriminant differently for baked constants vs loop scalars
@@ -304,7 +317,7 @@ class TestSphereTable:
         d /= np.linalg.norm(d, axis=1, keepdims=True)
         ox, oy, oz = (jnp.asarray(o[:, i]) for i in range(3))
         dx, dy, dz = (jnp.asarray(d[:, i]) for i in range(3))
-        # The kernel ships ONE flat packed per-sphere SMEM table
+        # The kernel ships ONE flat packed per-sphere table
         # (_sphere_tables); mirror that here.
         tab = (packed, len(spheres), base)
 
@@ -355,11 +368,12 @@ class TestSphereTable:
         cam = make_camera()
         cfg = RenderConfig(width=16, height=16, spp=2, estimator=est,
                            seed=4, sphere_table="off")
-        a, ta = render_pallas(scene, cam, cfg, 4, interpret=True)
+        a, ta = render_pallas(scene, cam, cfg, 4)
+        ta = trace_totals(ta)
         b, tb = render_pallas(
             scene, cam, dataclasses.replace(cfg, sphere_table="on"), 4,
-            interpret=True,
         )
+        tb = trace_totals(tb)
         a = np.asarray(a) / cfg.spp
         b = np.asarray(b) / cfg.spp
         # Identical estimator + RNG: only FMA-level grazing-hit path flips
@@ -381,14 +395,14 @@ class TestSphereTable:
         cam = make_camera()
         cfg = RenderConfig(width=8, height=8, spp=1, estimator="nee",
                            seed=1, sphere_table="on")
-        a, _ = render_pallas(scene, cam, cfg, 1, interpret=True)
+        a, _ = render_pallas(scene, cam, cfg, 1)
         n_built = len(mk._CACHE)
         moved = scene._replace(spheres=scene.spheres._replace(
             center=scene.spheres.center + jnp.asarray([0.0, 3.0, 0.0]),
             radius=scene.spheres.radius * 1.3,
             albedo=scene.spheres.albedo * 0.5,
         ))
-        b, _ = render_pallas(moved, cam, cfg, 1, interpret=True)
+        b, _ = render_pallas(moved, cam, cfg, 1)
         assert len(mk._CACHE) == n_built  # cache hit: no new build
         assert np.abs(np.asarray(a) - np.asarray(b)).max() > 1e-3
 
@@ -412,79 +426,6 @@ class TestSphereTable:
             many, dataclasses.replace(cfg, sphere_table="off"))
         with pytest.raises(ValueError, match="mat_refs"):
             build_kernel(many, cam, cfg, sphere_tab=True)
-
-    def test_cluster_mode_matches_table(self):
-        """sphere_table="cluster" (bounding-sphere tile pruning +
-        block-swizzled lanes, round-4 VERDICT item 5): the SAME sphere
-        set in Morton order scanned cluster-by-cluster must reproduce
-        the plain table render — the skip condition is conservative (a
-        pruned cluster contains no row any lane's ray could hit), the
-        per-row expression trees are shared, and per-sample radiance is
-        pixel-keyed so the lane swizzle is invisible."""
-        import dataclasses
-
-        scene = get_scene("sphere_grid")
-        cam = make_camera()
-        cfg_t = RenderConfig(width=24, height=16, spp=4, estimator="nee",
-                             seed=2, sphere_table="on")
-        cfg_c = dataclasses.replace(cfg_t, sphere_table="cluster")
-        a, ta = render_pallas(scene, cam, cfg_t, 2, interpret=True)
-        b, tb = render_pallas(scene, cam, cfg_c, 2, interpret=True)
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=1e-5, atol=1e-5)
-        assert float(np.asarray(ta).sum()) == float(np.asarray(tb).sum())
-        # Also at an image larger than one 64x64 swizzle block.
-        cfg_t2 = dataclasses.replace(cfg_t, width=80, height=72, spp=2)
-        cfg_c2 = dataclasses.replace(cfg_t2, sphere_table="cluster")
-        a2, _ = render_pallas(scene, cam, cfg_t2, 3, interpret=True)
-        b2, _ = render_pallas(scene, cam, cfg_c2, 3, interpret=True)
-        np.testing.assert_allclose(np.asarray(a2), np.asarray(b2),
-                                   rtol=1e-5, atol=1e-5)
-
-    def test_cluster_scratch_matches_table(self):
-        """sphere_table="cluster_scratch" (pl.when over VMEM-scratch
-        nearest-hit state — the round-5 crossover experiment,
-        _cluster_scan_scratch): identical pruning decisions and row math
-        as the cond variant, state in scratch refs instead of carries —
-        renders and trace counts must match the plain table exactly.
-        (Measured on the v5e: 18.8 vs cond 20.5 vs table 40.4 Mrays/s at
-        1024 spheres — a second no-win, kept as the A/B knob; PERF.md.)"""
-        import dataclasses
-
-        scene = get_scene("sphere_grid")
-        cam = make_camera()
-        cfg_t = RenderConfig(width=24, height=16, spp=4, estimator="nee",
-                             seed=2, sphere_table="on")
-        cfg_s = dataclasses.replace(cfg_t, sphere_table="cluster_scratch")
-        a, ta = render_pallas(scene, cam, cfg_t, 2, interpret=True)
-        b, tb = render_pallas(scene, cam, cfg_s, 2, interpret=True)
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=1e-5, atol=1e-5)
-        assert float(np.asarray(ta).sum()) == float(np.asarray(tb).sum())
-
-    def test_cluster_scene_spheres_roundtrip(self):
-        from small_pathtracer_tpu.ops.megakernel import (
-            CLUSTER_SIZE,
-            cluster_scene_spheres,
-        )
-
-        scene = get_scene("sphere_grid")
-        sp, bounds, meta = cluster_scene_spheres(scene)
-        S = int(np.asarray(scene.spheres.radius).shape[0])
-        K = -(-S // CLUSTER_SIZE)
-        assert bounds.shape == (K * 4,) and meta.shape == (K * 2,)
-        m = np.asarray(meta).reshape(K, 2)
-        assert m[:, 1].sum() == S  # every sphere in exactly one cluster
-        # The permuted scene holds the same sphere multiset.
-        assert sorted(np.asarray(scene.spheres.radius).tolist()) ==             sorted(np.asarray(sp.spheres.radius).tolist())
-        # Every sphere is inside its cluster's bound.
-        b = np.asarray(bounds).reshape(K, 4)
-        c = np.asarray(sp.spheres.center)
-        r = np.asarray(sp.spheres.radius)
-        for k in range(K):
-            s0, cnt = m[k]
-            d = np.linalg.norm(c[s0:s0 + cnt] - b[k, :3], axis=1)
-            assert np.all(d + r[s0:s0 + cnt] <= b[k, 3] + 1e-4)
 
     def test_auto_falls_back_when_table_incompatible(self):
         """auto mode must NOT select the table for scenes that violate the
@@ -534,7 +475,8 @@ class TestSphereTable:
         cam = make_camera()
         cfg = RenderConfig(width=12, height=12, spp=2, estimator="nee",
                            seed=2, sphere_table="on")
-        img, traces = render_pallas(scene, cam, cfg, 2, interpret=True)
+        img, traces = render_pallas(scene, cam, cfg, 2)
+        traces = trace_totals(traces)
         img = np.asarray(img) / cfg.spp
         assert np.isfinite(img).all()
         a, ta = render_regen(scene, cam, cfg, jnp.uint32(2))
@@ -556,10 +498,11 @@ class TestSphereTable:
         cam = make_camera()
         cfg = RenderConfig(width=16, height=16, spp=4, estimator="nee",
                            seed=5, sphere_table="on")
-        a, ta = render_pallas(scene, cam, cfg, 5, interpret=True)
+        a, ta = render_pallas(scene, cam, cfg, 5)
+        ta = trace_totals(ta)
         mesh = make_mesh(mesh_shape=(4, 2))
-        b, tb = render_pallas_sharded(scene, cam, cfg, mesh, 5,
-                                      interpret=True)
+        b, tb = render_pallas_sharded(scene, cam, cfg, mesh, 5)
+        tb = trace_totals(tb)
         np.testing.assert_array_equal(np.asarray(ta), np.asarray(tb))
         np.testing.assert_allclose(
             np.asarray(a), np.asarray(b).reshape(16, 16, 3), atol=1e-5
@@ -575,35 +518,20 @@ class TestSphereTable:
         cam = make_camera()
         cfg = RenderConfig(width=12, height=12, spp=4, estimator="nee",
                            seed=6, sphere_table="on")
-        a, ta = render_pallas(scene, cam, cfg, 6, interpret=True)
+        a, ta = render_pallas(scene, cam, cfg, 6)
+        ta = trace_totals(ta)
         n_pix = cfg.width * cfg.height
         L, tb = render_pallas_budgets(
             scene, cam, cfg, 6,
             np.zeros(n_pix, np.uint32),
             np.full(n_pix, cfg.spp, np.uint32),
-            interpret=True,
         )
+        tb = trace_totals(tb)
         np.testing.assert_allclose(
             np.asarray(a).reshape(n_pix, 3), np.asarray(L),
             rtol=1e-5, atol=1e-5,
         )
         np.testing.assert_allclose(np.asarray(ta), np.asarray(tb), rtol=5e-3)
-
-    def test_guided_rejects_table_mode(self):
-        from small_pathtracer_tpu.experiment.path_guiding import guide_lobes
-        from small_pathtracer_tpu.ops.megakernel import render_pallas_guided
-
-        scene = get_scene("sphere_grid")
-        cam = make_camera()
-        cfg = RenderConfig(width=8, height=8, spp=1, estimator="cosine",
-                           seed=1)
-        import jax.numpy as _jnp
-        from small_pathtracer_tpu.experiment.path_guiding import _NVOX
-
-        v = int(np.prod(_NVOX))
-        guide = (_jnp.zeros((v, 3)), _jnp.zeros((v,), bool))
-        with pytest.raises(ValueError, match="sphere_table"):
-            render_pallas_guided(scene, cam, cfg, 1, guide, interpret=True)
 
     def test_checkpoint_spans_compose_with_table(self, tmp_path):
         """Span rendering (the --checkpoint/--preview unit) through the

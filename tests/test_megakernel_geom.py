@@ -98,8 +98,8 @@ def test_forward_image_matches_table_kernel(scene, cam):
     from small_pathtracer_tpu.ops.megakernel import render_pallas
 
     cfg = _cfg(spp=4)
-    a, _, _, _ = mg.geom_run(scene, cam, cfg, 7, None, interpret=True)
-    b, _ = render_pallas(scene, cam, cfg, 7, interpret=True)
+    a, _, _, _ = mg.geom_run(scene, cam, cfg, 7, None)
+    b, _ = render_pallas(scene, cam, cfg, 7)
     a = np.asarray(a) / cfg.spp
     b = np.asarray(b) / cfg.spp
     assert np.isfinite(a).all()
@@ -118,12 +118,11 @@ def test_material_grads_match_crn_fd(scene, cam):
     seed = 5
 
     def loss_of(s2):
-        img, _, _, _ = mg.geom_run(s2, cam, cfg, seed, None, interpret=True)
+        img, _, _, _ = mg.geom_run(s2, cam, cfg, seed, None)
         img = np.asarray(img) / cfg.spp
         return float(np.mean((img - target) ** 2))
 
-    loss, g = mg.loss_and_geom_grads(scene, cam, cfg, seed, target,
-                                     interpret=True)
+    loss, g = mg.loss_and_geom_grads(scene, cam, cfg, seed, target)
     assert loss == pytest.approx(loss_of(scene), rel=1e-5)
 
     checks = [
@@ -151,8 +150,7 @@ def _stable_pixel_grads(scene, cam, cfg, seed):
     kernel/jnp radiance agrees to float noise."""
     from small_pathtracer_tpu.grad.adjoint import render_linear
 
-    img_k, _, _, _ = mg.geom_run(scene, cam, cfg, seed, None,
-                                 interpret=True)
+    img_k, _, _, _ = mg.geom_run(scene, cam, cfg, seed, None)
     img_k = np.asarray(img_k) / cfg.spp
     img_j = np.asarray(render_linear(scene, cam, cfg, jnp.uint32(seed),
                                      cfg.max_bounces))
@@ -198,8 +196,7 @@ def test_geometry_grads_match_jnp_on_stable_paths(scene, cam):
     for (x, y) in pixels[:2]:
         g_img = np.zeros((H, W, 3), np.float32)
         g_img[y, x, :] = 1.0
-        gtab, galb, gemi = mg.geom_vjp(scene, cam, cfg, seed, g_img,
-                                       interpret=True)
+        gtab, galb, gemi = mg.geom_vjp(scene, cam, cfg, seed, g_img)
         gk = mg.grads_to_scene(scene, gtab, galb, gemi)
 
         def val(cen, rad):
@@ -240,8 +237,7 @@ def test_geometry_grads_match_jnp_mis(scene, cam):
     for (x, y) in pixels[:2]:
         g_img = np.zeros((H, W, 3), np.float32)
         g_img[y, x, :] = 1.0
-        gtab, galb, gemi = mg.geom_vjp(scene, cam, cfg, seed, g_img,
-                                       interpret=True)
+        gtab, galb, gemi = mg.geom_vjp(scene, cam, cfg, seed, g_img)
         gk = mg.grads_to_scene(scene, gtab, galb, gemi)
 
         def val(cen, rad, alb):
@@ -280,7 +276,7 @@ def test_multilight_grads_match_jnp(twolight_scene, cam, est):
     scene = twolight_scene
     cfg = _cfg(estimator=est, spp=2, max_bounces=4)
     seed = 7
-    img_sum, _, _, _ = mg.geom_run(scene, cam, cfg, seed, interpret=True)
+    img_sum, _, _, _ = mg.geom_run(scene, cam, cfg, seed)
     img_k = np.asarray(img_sum) / cfg.spp
     img_j = np.asarray(render_linear(scene, cam, cfg, jnp.uint32(seed),
                                      cfg.max_bounces))
@@ -295,8 +291,7 @@ def test_multilight_grads_match_jnp(twolight_scene, cam, est):
     for (y, x) in probe:
         g_img = np.zeros((H, W, 3), np.float32)
         g_img[y, x, :] = 1.0
-        gtab, galb, gemi = mg.geom_vjp(scene, cam, cfg, seed, g_img,
-                                       interpret=True)
+        gtab, galb, gemi = mg.geom_vjp(scene, cam, cfg, seed, g_img)
         gk = mg.grads_to_scene(scene, gtab, galb, gemi)
 
         def val(cen, rad, alb, remi):
@@ -352,7 +347,7 @@ def test_glossy_grads_match_jnp(scene, cam, est):
         gloss=r.gloss.at[floor].set(40.0)))
     cfg = _cfg(estimator=est, spp=2, max_bounces=5)
     seed = 9
-    img_sum, _, _, _ = mg.geom_run(glos, cam, cfg, seed, interpret=True)
+    img_sum, _, _, _ = mg.geom_run(glos, cam, cfg, seed)
     img_k = np.asarray(img_sum) / cfg.spp
     img_j = np.asarray(render_linear(glos, cam, cfg, jnp.uint32(seed),
                                      cfg.max_bounces))
@@ -367,8 +362,7 @@ def test_glossy_grads_match_jnp(scene, cam, est):
     for (y, x) in [pixels[0], pixels[-1]]:
         g_img = np.zeros((H, W, 3), np.float32)
         g_img[y, x, :] = 1.0
-        gtab, galb, gemi = mg.geom_vjp(glos, cam, cfg, seed, g_img,
-                                       interpret=True)
+        gtab, galb, gemi = mg.geom_vjp(glos, cam, cfg, seed, g_img)
         gk = mg.grads_to_scene(glos, gtab, galb, gemi)
 
         def val(cen, rad, alb, ralb):
@@ -401,8 +395,7 @@ def test_glossy_grads_match_jnp(scene, cam, est):
     g_img = np.zeros((H, W, 3), np.float32)
     for (y, x) in pixels:
         g_img[y, x, :] = 1.0
-    gtab, galb, gemi = mg.geom_vjp(glos, cam, cfg, seed, g_img,
-                                   interpret=True)
+    gtab, galb, gemi = mg.geom_vjp(glos, cam, cfg, seed, g_img)
     gk = mg.grads_to_scene(glos, gtab, galb, gemi)
 
     def val_all(ralb):
@@ -427,8 +420,7 @@ def test_whole_image_grads_statistical(scene, cam):
     target = np.zeros((36, 48, 3), np.float32)
     ks, js = [], []
     for seed in (1, 2):
-        _, gk = mg.loss_and_geom_grads(scene, cam, cfg, seed, target,
-                                       interpret=True)
+        _, gk = mg.loss_and_geom_grads(scene, cam, cfg, seed, target)
 
         def loss_fn(cen, rad):
             s2 = scene._replace(spheres=scene.spheres._replace(
@@ -462,13 +454,12 @@ def test_estimators_finite_and_consistent(scene, cam, est):
 
     cfg = _cfg(estimator=est, spp=2, max_bounces=4)
     target = np.zeros((H, W, 3), np.float32)
-    loss, g = mg.loss_and_geom_grads(scene, cam, cfg, 11, target,
-                                     interpret=True)
+    loss, g = mg.loss_and_geom_grads(scene, cam, cfg, 11, target)
     assert np.isfinite(float(loss))
     assert all(np.isfinite(np.asarray(x)).all()
                for x in jax.tree.leaves(g))
-    a, _, _, _ = mg.geom_run(scene, cam, cfg, 11, None, interpret=True)
-    b, _ = render_pallas(scene, cam, cfg, 11, interpret=True)
+    a, _, _, _ = mg.geom_run(scene, cam, cfg, 11, None)
+    b, _ = render_pallas(scene, cam, cfg, 11)
     assert abs(float(np.asarray(a).mean()) - float(np.asarray(b).mean())) \
         < 0.05 * max(float(np.asarray(b).mean()), 1.0)
 
@@ -476,8 +467,7 @@ def test_estimators_finite_and_consistent(scene, cam, est):
 def test_glibc_mode_runs(scene, cam):
     cfg = _cfg(light_sample_mode="glibc_overflow", spp=2, max_bounces=4)
     target = np.zeros((H, W, 3), np.float32)
-    loss, g = mg.loss_and_geom_grads(scene, cam, cfg, 2, target,
-                                     interpret=True)
+    loss, g = mg.loss_and_geom_grads(scene, cam, cfg, 2, target)
     assert np.isfinite(float(loss))
     assert all(np.isfinite(np.asarray(x)).all()
                for x in jax.tree.leaves(g))
@@ -491,8 +481,7 @@ def test_spec_refr_scene(cam):
     cfg = RenderConfig(width=16, height=12, spp=2, estimator="nee",
                        max_bounces=5, sphere_table="on")
     target = np.zeros((12, 16, 3), np.float32)
-    loss, g = mg.loss_and_geom_grads(scene, cam, cfg, 4, target,
-                                     interpret=True)
+    loss, g = mg.loss_and_geom_grads(scene, cam, cfg, 4, target)
     assert np.isfinite(float(loss))
     assert all(np.isfinite(np.asarray(x)).all()
                for x in jax.tree.leaves(g))
@@ -505,7 +494,7 @@ def test_fit_recovers_displaced_sphere(scene, cam):
     monotone best-loss descent of >= 1.35x, and the pose must not walk
     AWAY from the truth."""
     cfg = _cfg(spp=4, width=32, height=24, max_bounces=6)
-    img, _, _, _ = mg.geom_run(scene, cam, cfg, 13, None, interpret=True)
+    img, _, _, _ = mg.geom_run(scene, cam, cfg, 13, None)
     target = np.asarray(img) / cfg.spp
     displaced = scene._replace(spheres=scene.spheres._replace(
         center=scene.spheres.center.at[0].add(
@@ -513,8 +502,7 @@ def test_fit_recovers_displaced_sphere(scene, cam):
     ))
     fitted, losses = mg.fit_pallas_geom(
         displaced, cam, cfg, target, sphere_idx=0,
-        fields=("center",), steps=10, lr=2.0, seed=13, interpret=True,
-    )
+        fields=("center",), steps=10, lr=2.0, seed=13, )
     d0 = float(jnp.linalg.norm(
         displaced.spheres.center[0] - scene.spheres.center[0]))
     d1 = float(jnp.linalg.norm(
@@ -528,16 +516,16 @@ def test_no_recompile_across_geometry(scene, cam):
     """Geometry/material edits reuse the compiled kernel (the property
     that makes per-step fitting cheap)."""
     cfg = _cfg(spp=1, max_bounces=3)
-    mg.geom_run(scene, cam, cfg, 1, None, interpret=True)
+    mg.geom_run(scene, cam, cfg, 1, None)
     n = len(mg._CACHE)
     moved = scene._replace(spheres=scene.spheres._replace(
         center=scene.spheres.center + jnp.asarray([1.0, 0.5, -2.0]),
         radius=scene.spheres.radius * 1.1,
         albedo=scene.spheres.albedo * 0.9,
     ))
-    a, _, _, _ = mg.geom_run(moved, cam, cfg, 1, None, interpret=True)
+    a, _, _, _ = mg.geom_run(moved, cam, cfg, 1, None)
     assert len(mg._CACHE) == n
-    b, _, _, _ = mg.geom_run(scene, cam, cfg, 1, None, interpret=True)
+    b, _, _, _ = mg.geom_run(scene, cam, cfg, 1, None)
     assert np.abs(np.asarray(a) - np.asarray(b)).max() > 1e-3
 
 
@@ -556,19 +544,16 @@ def test_sharded_train_step_matches_single_device(scene, cam):
         pytest.skip("needs the 8-device CPU mesh (tests/conftest.py)")
     cfg = _cfg(width=24, height=16, spp=8, max_bounces=4)
     target = np.zeros((16, 24, 3), np.float32)
-    loss_1, gsc_1 = mg.loss_and_geom_grads(scene, cam, cfg, 3, target,
-                                           interpret=True)
+    loss_1, gsc_1 = mg.loss_and_geom_grads(scene, cam, cfg, 3, target)
     alb, emi, packed = _sphere_tables(scene)
     for shape in ((8, 1), (4, 2)):
         mesh = make_mesh(devices[:8], mesh_shape=shape)
-        step = mg.geom_train_step_sharded(scene, cam, cfg, mesh, target,
-                                          interpret=True)
+        step = mg.geom_train_step_sharded(scene, cam, cfg, mesh, target)
         loss_s, img_s, gtab_s, galb_s, gemi_s = step(alb, emi, packed, 3)
         gsc_s = mg.grads_to_scene(scene, gtab_s, galb_s, gemi_s)
         assert abs(float(loss_s) - float(loss_1)) < 1e-5, shape
         # The assembled image is the same radiance sum geom_run reports.
-        img_1, _, _, _ = mg.geom_run(scene, cam, cfg, 3, None,
-                                     interpret=True)
+        img_1, _, _, _ = mg.geom_run(scene, cam, cfg, 3, None)
         np.testing.assert_allclose(np.asarray(img_s), np.asarray(img_1),
                                    atol=2e-5)
         np.testing.assert_allclose(
@@ -597,18 +582,18 @@ def test_fit_mesh_matches_single_device(scene, cam):
     if len(devices) < 8:
         pytest.skip("needs the 8-device CPU mesh (tests/conftest.py)")
     cfg = _cfg(width=24, height=16, spp=8, max_bounces=4)
-    img_t, _, _, _ = mg.geom_run(scene, cam, cfg, 3, None, interpret=True)
+    img_t, _, _, _ = mg.geom_run(scene, cam, cfg, 3, None)
     target = np.asarray(img_t) / cfg.spp
     displaced = scene._replace(spheres=scene.spheres._replace(
         center=scene.spheres.center.at[0].add(
             jnp.asarray([3.0, 0.0, -2.0], jnp.float32))))
     fit_1, losses_1 = mg.fit_pallas_geom(
         displaced, cam, cfg, target, sphere_idx=0, fields=("center",),
-        steps=3, lr=1.5, seed=3, interpret=True)
+        steps=3, lr=1.5, seed=3)
     mesh = make_mesh(devices[:8], mesh_shape=(4, 2))
     fit_m, losses_m = mg.fit_pallas_geom(
         displaced, cam, cfg, target, sphere_idx=0, fields=("center",),
-        steps=3, lr=1.5, seed=3, interpret=True, mesh=mesh)
+        steps=3, lr=1.5, seed=3, mesh=mesh)
     assert losses_m[0] == pytest.approx(losses_1[0], abs=1e-6)
     assert min(losses_m) == pytest.approx(min(losses_1), abs=1e-6)
     np.testing.assert_allclose(np.asarray(fit_m.spheres.center),
@@ -639,3 +624,18 @@ def test_validation_errors(scene, cam):
     bad = scene._replace(lights=ll)
     with pytest.raises(ValueError, match="table sphere"):
         mg.build_geom_grad_kernel(bad, cam, _cfg())
+
+
+@pytest.mark.parametrize("extra", [0, 1])
+def test_sphere_count_limit(cam, extra):
+    """The kernel takes tables up to GEOM_MAX_SPHERES spheres and refuses
+    larger ones before it traces anything."""
+    from small_pathtracer_tpu.scene.presets import sphere_grid
+
+    big = sphere_grid(mg.GEOM_MAX_SPHERES + extra)
+    if extra:
+        with pytest.raises(ValueError, match="at most"):
+            mg.build_geom_grad_kernel(big, cam, _cfg())
+    else:
+        _, _, n_sph = mg.build_geom_grad_kernel(big, cam, _cfg())
+        assert n_sph == mg.GEOM_MAX_SPHERES

@@ -13,7 +13,7 @@ import jax.numpy as jnp
 
 from small_pathtracer_tpu import RenderConfig, get_scene, make_camera
 from small_pathtracer_tpu.grad.adjoint import render_linear
-from small_pathtracer_tpu.ops.megakernel import render_pallas
+from small_pathtracer_tpu.ops.megakernel import render_pallas, trace_totals
 from small_pathtracer_tpu.ops.megakernel_grad import (
     fit_pallas,
     loss_and_material_grads,
@@ -42,9 +42,11 @@ def test_fwd_runtime_materials_matches_baked():
     materials (same RNG, same float expression trees)."""
     scene = get_scene("cornell_box")
     cam = make_camera()
-    a, ta = render_pallas(scene, cam, CFG, 3, interpret=True)
+    a, ta = render_pallas(scene, cam, CFG, 3)
+    ta = trace_totals(ta)
     alb, emi = pack_materials(scene)
-    b, tb = render_pallas_mat(scene, cam, CFG, alb, emi, 3, interpret=True)
+    b, tb = render_pallas_mat(scene, cam, CFG, alb, emi, 3)
+    tb = trace_totals(tb)
     np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
     np.testing.assert_array_equal(np.asarray(ta), np.asarray(tb))
 
@@ -88,8 +90,7 @@ def test_vjp_matches_jnp_adjoint(est):
     l_jnp, ga_jnp, ge_jnp = _jnp_loss_and_grads(scene, cam, cfg, cfg.seed,
                                                 target)
     l_k, ga_k, ge_k = loss_and_material_grads(
-        scene, cam, cfg, jnp.uint32(cfg.seed), target, interpret=True
-    )
+        scene, cam, cfg, jnp.uint32(cfg.seed), target)
     assert abs(float(l_k) - l_jnp) < 1e-5 * max(1.0, abs(l_jnp))
     ga_k = np.asarray(ga_k).copy()
     ga_jnp = np.asarray(ga_jnp).copy()
@@ -132,8 +133,7 @@ def test_vjp_matches_jnp_adjoint_multilight(est, sel):
     l_jnp, ga_jnp, ge_jnp = _jnp_loss_and_grads(scene, cam, cfg, cfg.seed,
                                                 target)
     l_k, ga_k, ge_k = loss_and_material_grads(
-        scene, cam, cfg, jnp.uint32(cfg.seed), target, interpret=True
-    )
+        scene, cam, cfg, jnp.uint32(cfg.seed), target)
     assert abs(float(l_k) - l_jnp) < 1e-5 * max(1.0, abs(l_jnp))
     ga_k = np.asarray(ga_k).copy()
     ga_jnp = np.asarray(ga_jnp).copy()
@@ -158,9 +158,11 @@ def test_fwd_runtime_materials_matches_baked_multilight():
     scene = get_scene("cornell_twolights")
     cam = make_camera()
     cfg = dataclasses.replace(CFG, estimator="nee", light_select="power")
-    a, ta = render_pallas(scene, cam, cfg, 3, interpret=True)
+    a, ta = render_pallas(scene, cam, cfg, 3)
+    ta = trace_totals(ta)
     alb, emi = pack_materials(scene)
-    b, tb = render_pallas_mat(scene, cam, cfg, alb, emi, 3, interpret=True)
+    b, tb = render_pallas_mat(scene, cam, cfg, alb, emi, 3)
+    tb = trace_totals(tb)
     np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
     np.testing.assert_array_equal(np.asarray(ta), np.asarray(tb))
 
@@ -177,8 +179,7 @@ def test_vjp_matches_jnp_adjoint_spec_refr():
     l_jnp, ga_jnp, ge_jnp = _jnp_loss_and_grads(scene, cam, cfg, cfg.seed,
                                                 target)
     l_k, ga_k, ge_k = loss_and_material_grads(
-        scene, cam, cfg, jnp.uint32(cfg.seed), target, interpret=True
-    )
+        scene, cam, cfg, jnp.uint32(cfg.seed), target)
     assert abs(float(l_k) - l_jnp) < 1e-5 * max(1.0, abs(l_jnp))
     scale_a = np.abs(ga_jnp).max()
     scale_e = np.abs(ge_jnp).max()
@@ -209,8 +210,7 @@ def test_vjp_matches_jnp_adjoint_glos(est):
     l_jnp, ga_jnp, ge_jnp = _jnp_loss_and_grads(scene, cam, cfg, cfg.seed,
                                                 target)
     l_k, ga_k, ge_k = loss_and_material_grads(
-        scene, cam, cfg, jnp.uint32(cfg.seed), target, interpret=True
-    )
+        scene, cam, cfg, jnp.uint32(cfg.seed), target)
     assert abs(float(l_k) - l_jnp) < 1e-5 * max(1.0, abs(l_jnp))
     ga_k = np.asarray(ga_k).copy()
     ga_jnp = np.asarray(ga_jnp).copy()
@@ -235,17 +235,14 @@ def test_fd_validates_kernel_gradient():
     target = jnp.zeros((cfg.height, cfg.width, 3), jnp.float32)
 
     def loss(alb_, emi_):
-        img_sum, _ = render_pallas_mat(scene, cam, cfg, alb_, emi_, 3,
-                                       interpret=True)
+        img_sum, _ = render_pallas_mat(scene, cam, cfg, alb_, emi_, 3)
         img = img_sum / cfg.spp
         return float(jnp.mean((img - target) ** 2))
 
-    img_sum, _ = render_pallas_mat(scene, cam, cfg, alb, emi, 3,
-                                   interpret=True)
+    img_sum, _ = render_pallas_mat(scene, cam, cfg, alb, emi, 3)
     img = img_sum / cfg.spp
     g_img = (img - target) * (2.0 / (img.size * cfg.spp))
-    galb, gemi = render_pallas_vjp(scene, cam, cfg, alb, emi, 3, g_img,
-                                   interpret=True)
+    galb, gemi = render_pallas_vjp(scene, cam, cfg, alb, emi, 3, g_img)
 
     h = 1e-3
     # Light emission (obj 6, ch 0) and a wall albedo (obj 2 green, ch 0 —
@@ -279,13 +276,12 @@ def test_fit_pallas_recovers_emission():
     bright = scene._replace(
         rects=scene.rects._replace(emission=scene.rects.emission * 1.5)
     )
-    img_sum, _ = render_pallas(bright, cam, cfg, 9, interpret=True)
+    img_sum, _ = render_pallas(bright, cam, cfg, 9)
     target = img_sum / cfg.spp
 
     fitted, losses = fit_pallas(
         scene, cam, cfg, target, steps=12, lr=8.0,
-        train_fields=("emission",), seed=5, interpret=True,
-    )
+        train_fields=("emission",), seed=5, )
     assert losses[-1] < 0.65 * losses[0], losses
     # The light's emission moved toward 18 (= 12 * 1.5).
     e0 = float(np.asarray(scene.rects.emission)[6, 0])
@@ -315,12 +311,11 @@ def test_sharded_material_step_loss_on_sample_mesh():
                        max_bounces=4)
     target = np.zeros((16, 24, 3), np.float32)
     loss_1, galb_1, gemi_1 = loss_and_material_grads(
-        scene, cam, cfg, jnp.uint32(3), target, interpret=True)
+        scene, cam, cfg, jnp.uint32(3), target)
     alb, emi = pack_materials(scene)
     for shape in ((8, 1), (4, 2)):
         mesh = make_mesh(devices[:8], mesh_shape=shape)
-        step = material_train_step_sharded(scene, cam, cfg, mesh, target,
-                                           interpret=True)
+        step = material_train_step_sharded(scene, cam, cfg, mesh, target)
         loss_s, galb_s, gemi_s = step(alb, emi, 3)
         assert abs(float(loss_s) - float(loss_1)) < 1e-5, shape
         np.testing.assert_allclose(np.asarray(galb_s),
